@@ -1,4 +1,4 @@
-"""Render the showcase gallery (run on TPU: python docs/make_gallery.py)."""
+"""Render the showcase gallery (on the GPU: python docs/make_gallery.py)."""
 
 import os
 import sys

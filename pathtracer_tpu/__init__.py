@@ -1,9 +1,9 @@
-"""pathtracer_tpu — a TPU-native differentiable path tracer in JAX/Pallas.
+"""pathtracer_tpu — a differentiable wavefront path tracer in JAX.
 
-Brand-new framework reproducing the capabilities of nbonneel/pathtracer
-(C++/OpenMP/Embree CPU path tracer) with an idiomatic TPU design:
-wavefront path tracing over SoA ray arrays, Pallas BVH kernels, pjit/
-shard_map multi-chip sharding, and detached-sampling differentiability.
+Reproduces the capabilities of nbonneel/pathtracer (C++/OpenMP/Embree CPU
+path tracer): wavefront path tracing over SoA ray arrays, a per-ray BVH
+traversal kernel for NVIDIA GPUs (Pallas, Triton route), shard_map
+multi-device sharding, and detached-sampling differentiability.
 See SURVEY.md at the repo root for the reference structural analysis.
 """
 

@@ -22,7 +22,9 @@ def main(argv=None):
                    help="replaces '#' in mesh paths (batch renders)")
     p.add_argument('--spp', type=int, default=None, help='override nrays')
     p.add_argument('--size', type=str, default=None, help='WxH override')
-    p.add_argument('--cpu', action='store_true', help='force CPU backend')
+    p.add_argument('--cpu', action='store_true',
+                   help='render on the CPU (an explicit choice; nothing '
+                        'falls back to it silently)')
     p.add_argument('--progressive', action='store_true',
                    help='save preview after every wave')
     p.add_argument('--frame', type=int, default=0,
@@ -50,6 +52,8 @@ def main(argv=None):
     if args.cpu:
         import jax
         jax.config.update('jax_platforms', 'cpu')
+    from .utils import compile_cache
+    compile_cache.enable()
 
     from .io import image as image_io
     from .io import scene_json

@@ -1,6 +1,6 @@
 """Camera model: pinhole + thin-lens DoF (+ lenticular / camera-array modes).
 
-TPU-native counterpart of the reference Camera (reference: Vector.h:721-840).
+JAX counterpart of the reference Camera (reference: Vector.h:721-840).
 The camera is a small pytree of scalars/vectors; ray generation is fully
 vectorized over pixel/sample arrays so a whole wavefront of primary rays is
 produced in one fused XLA op (the reference generates one ray at a time,
@@ -16,10 +16,10 @@ import jax.numpy as jnp
 from . import vec
 
 
-import flax.struct
+from ..utils import struct
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class Camera:
     """Pytree camera. Vectors are (3,) float32, scalars 0-d float32.
 
@@ -35,9 +35,9 @@ class Camera:
     aperture: jnp.ndarray
     # lenticular interlacing (reference: Vector.h:798-812, 827-836)
     lenticular_max_angle: jnp.ndarray = None
-    is_lenticular: bool = flax.struct.field(pytree_node=False, default=False)
-    lenticular_nb_images: int = flax.struct.field(pytree_node=False, default=10)
-    lenticular_pixel_width: int = flax.struct.field(pytree_node=False, default=1)
+    is_lenticular: bool = struct.field(pytree_node=False, default=False)
+    lenticular_nb_images: int = struct.field(pytree_node=False, default=10)
+    lenticular_pixel_width: int = struct.field(pytree_node=False, default=1)
 
 
 def make_camera(position, direction, up, fov=35.0 * math.pi / 180.0,

@@ -2,11 +2,12 @@
 
 The reference path tracer draws uniforms from 64 thread-local ``pcg32`` engines
 (reference: Vector.h:29, Raytracer.h:31-33).  Thread-local streams do not map to
-a TPU's SPMD execution model, so here every *path* (pixel, sample) owns its own
+a wavefront's SPMD execution model, so here every *path* (pixel, sample) owns its own
 PCG32 stream, selected by the PCG "sequence" (stream) parameter.  The generator
 itself is the exact PCG XSH-RR 64/32 engine from the vendored pcg_random.hpp
 (reference: pcg_random.hpp:845-871 output fn, :484-499 seeding, :413-420 bump),
-implemented on pairs of uint32 lanes because JAX on TPU has no uint64.
+implemented on pairs of uint32 lanes so it needs no 64-bit integer support
+(JAX's default x64-off mode has no uint64).
 
 All state is a pair of uint32 arrays ``(hi, lo)`` representing the 64-bit PCG
 state.  Streams:

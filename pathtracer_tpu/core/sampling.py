@@ -1,6 +1,6 @@
 """Directional sampling — pure functions of explicit uniforms.
 
-TPU-native counterparts of the reference's sampling free functions
+JAX counterparts of the reference's sampling free functions
 (reference: Vector.h:582-655, BRDF.h:41-61).  Unlike the reference, none of
 these draw randomness themselves: uniforms always arrive as arguments so the
 caller controls the per-lane PCG stream and the functions stay pure/traceable

@@ -1,4 +1,4 @@
-"""float3 math on (..., 3) arrays — the TPU-native Vector (reference: Vector.h).
+"""float3 math on (..., 3) arrays — the JAX Vector (reference: Vector.h).
 
 Everything operates on trailing-dimension-3 float arrays so that rays, normals
 and colors batch over arbitrary leading wavefront dimensions and XLA fuses the
@@ -8,6 +8,14 @@ arithmetic into the surrounding kernels.
 from __future__ import annotations
 
 import jax.numpy as jnp
+
+
+def any_true(x, axis=None):
+    """jnp.any as an int32 max.  XLA's GPU compiler routes boolean (pred)
+    reductions to its Triton block-level emitter, where one over the
+    wavefront compiled for more than 7 minutes on an H100; an integer
+    reduction compiles at once."""
+    return jnp.max(x.astype(jnp.int32), axis=axis, initial=0) > 0
 
 
 def dot(a, b):

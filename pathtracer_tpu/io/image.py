@@ -1,21 +1,61 @@
 """Host image I/O (the reference's stb/CImg/hdr stack, utils.h:17-18,
-hdrwriter.h:5, via PIL/numpy on the TPU host)."""
+hdrwriter.h:5).
+
+PNG and Radiance .hdr are written with numpy + zlib; other formats (JPEG
+output, texture images to read) go through Pillow, imported only when
+such a file is touched."""
 
 from __future__ import annotations
+
+import struct
+import zlib
 
 import numpy as np
 
 
+def _pil_image():
+    try:
+        from PIL import Image
+    except ImportError as e:          # pragma: no cover - depends on host
+        raise ImportError(
+            'reading images and writing formats other than PNG/HDR needs '
+            'Pillow (pip install pillow)') from e
+    return Image
+
+
+def encode_png(u8_image: np.ndarray) -> bytes:
+    """(H,W,3) or (H,W) uint8 -> PNG bytes (8-bit RGB/gray, no filter)."""
+    img = np.ascontiguousarray(np.asarray(u8_image, np.uint8))
+    if img.ndim == 2:
+        color_type, ch = 0, 1
+    else:
+        color_type, ch = {1: (0, 1), 3: (2, 3), 4: (6, 4)}[img.shape[2]]
+    h, w = img.shape[:2]
+    raw = np.zeros((h, 1 + w * ch), np.uint8)     # filter byte 0 per row
+    raw[:, 1:] = img.reshape(h, w * ch)
+
+    def chunk(tag, data):
+        return (struct.pack('>I', len(data)) + tag + data
+                + struct.pack('>I', zlib.crc32(tag + data) & 0xffffffff))
+
+    ihdr = struct.pack('>IIBBBBB', w, h, 8, color_type, 0, 0, 0)
+    return (b'\x89PNG\r\n\x1a\n' + chunk(b'IHDR', ihdr)
+            + chunk(b'IDAT', zlib.compress(raw.tobytes(), 6))
+            + chunk(b'IEND', b''))
+
+
 def save_image(path: str, u8_image: np.ndarray):
     """Save (H,W,3) uint8 (reference save_image, utils.cpp:178)."""
-    from PIL import Image
-    Image.fromarray(np.asarray(u8_image)).save(path)
+    if str(path).lower().endswith('.png'):
+        with open(path, 'wb') as f:
+            f.write(encode_png(u8_image))
+        return
+    _pil_image().fromarray(np.asarray(u8_image)).save(path)
 
 
 def load_image(path: str) -> np.ndarray:
     """Load as (H,W,3) float32 in [0,255] raw values (reference load_image)."""
-    from PIL import Image
-    return np.asarray(Image.open(path).convert('RGB'), np.float32)
+    return np.asarray(_pil_image().open(path).convert('RGB'), np.float32)
 
 
 def save_hdr(path: str, image: np.ndarray):

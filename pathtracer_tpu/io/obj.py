@@ -1,6 +1,6 @@
 """Host-side OBJ/MTL loading with the reference's exact semantics.
 
-TPU-native counterpart of TriMesh::readOBJ / MTL parsing / init transform
+JAX counterpart of TriMesh::readOBJ / MTL parsing / init transform
 (reference: TriangleMesh.cpp:240-569 reader, :718-841 init).  Pure numpy —
 runs once at scene-build time; the device only ever sees flat SoA arrays.
 

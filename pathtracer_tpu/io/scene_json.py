@@ -1,4 +1,4 @@
-"""Scene serialization: the TPU-native `.scn` equivalent (JSON).
+"""Scene serialization: the JSON `.scn` equivalent (JSON).
 
 Counterpart of the reference's text scene format (reference:
 Raytracer::save_scene/load_scene, Raytracer.cpp:1096-1236; per-object

@@ -1,6 +1,6 @@
 """BRDF evaluation/sampling as pure vectorized functions.
 
-TPU-native counterpart of the reference BRDF hierarchy (reference:
+JAX counterpart of the reference BRDF hierarchy (reference:
 BRDF.h:22-113).  Virtual dispatch becomes lane masking: every lane computes
 the (cheap) Phong model; Lambert is Phong with Ks=0.  Measured BRDFs
 (MERL/Titopo) are separate gather-based modules.

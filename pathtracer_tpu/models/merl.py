@@ -1,8 +1,8 @@
 """Measured BRDFs: MERL isotropic (.binary) and Titopo tabulated formats.
 
-TPU-native counterpart of IsoMERLBRDF / TitopoBRDF (reference:
+JAX counterpart of IsoMERLBRDF / TitopoBRDF (reference:
 BRDF.h:116-248, MERLBRDFRead.cpp:28-235).  Both are pure gather tables —
-ideal TPU citizens: the half/difference-angle reparameterization is
+a good fit for a wavefront: the half/difference-angle reparameterization is
 vectorized trigonometry and the lookups are (N,)-indexed gathers.
 
 Sampling for both is cosine-hemisphere with pdf = cos/pi
@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import numpy as np
 import jax.numpy as jnp
-import flax.struct
+from ..utils import struct
 
 from ..core import vec
 
@@ -29,16 +29,16 @@ MERL = 0
 TITOPO = 1
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class MeasuredBRDF:
     """One loaded measured-BRDF table bound to scene objects."""
 
     data: jnp.ndarray                # MERL: (3, TH*TD*PD/2) f32
                                      # Titopo: (Ti*To*Pd, 3) f32
-    kind: int = flax.struct.field(pytree_node=False)
-    dims: tuple = flax.struct.field(pytree_node=False, default=())
+    kind: int = struct.field(pytree_node=False)
+    dims: tuple = struct.field(pytree_node=False, default=())
     # source file (scene save/round-trip; not used at render time)
-    path: str = flax.struct.field(pytree_node=False, default='')
+    path: str = struct.field(pytree_node=False, default='')
 
 
 def load_merl(path: str) -> MeasuredBRDF:

@@ -1,6 +1,6 @@
 """Texture channels: load, sample, and per-group device storage.
 
-TPU-native counterpart of the reference Texture class (reference:
+Counterpart of the reference Texture class (reference:
 BRDF.h:252-426): one class serves all 8 map channels (albedo, specular,
 normal, alpha, roughness, transparency-mask, refraction-index, subsurface);
 color maps are /255 then gamma-2.2-linearized at load (BRDF.h:393-404),
@@ -10,7 +10,7 @@ color is an image-less channel with a multiplier (BRDF.h:254, 306-307).
 
 Device layout: per-(mesh, group, channel) images are separate (H,W,3)
 arrays (static pytree structure — group counts are small); texel gathers
-are (N,)-indexed per the TPU layout rules.
+are (N,)-indexed.
 """
 
 from __future__ import annotations
@@ -19,13 +19,13 @@ from typing import Optional
 
 import numpy as np
 import jax.numpy as jnp
-import flax.struct
+from ..utils import struct
 
 
 def load_color_image(path: str) -> np.ndarray:
     """Color map load: /255 then ^2.2 (reference: BRDF.h:393-404)."""
-    from PIL import Image
-    img = np.asarray(Image.open(path).convert('RGB'), np.float32)
+    from ..io.image import load_image
+    img = load_image(path)
     return np.power(img / 255.0, 2.2).astype(np.float32)
 
 
@@ -35,8 +35,8 @@ def load_normal_image(path: str) -> np.ndarray:
     Note the reference subtracts 128 from raw u8 (not /255), then
     normalizes — reproduced exactly.
     """
-    from PIL import Image
-    img = np.asarray(Image.open(path).convert('RGB'), np.float32) - 128.0
+    from ..io.image import load_image
+    img = load_image(path) - 128.0
     n = np.linalg.norm(img, axis=-1, keepdims=True)
     return (img / np.maximum(n, 1e-12)).astype(np.float32)
 
@@ -47,7 +47,7 @@ def load_raw_image(path: str) -> np.ndarray:
     return load_color_image(path)
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class GroupTextures:
     """Optional per-group images; constant channels stay None (multiplier
     lives in MeshArrays.g_* / the analytic material table)."""
@@ -148,13 +148,13 @@ CHANNELS = ('kd', 'ks', 'normal', 'alpha', 'roughness', 'transp', 'refr',
             'ksub')
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class ChannelAtlas:
     """One channel's per-group images packed into a single array.
 
     The per-group select-chain in scene._merge_mesh_hit is the right
-    call for a handful of groups (select chains beat gathers on TPU for
-    small tables — CLAUDE.md rule), but a mesh with dozens of textured
+    call for a handful of groups (a few vectorized selects instead of a
+    gather), but a mesh with dozens of textured
     groups would pay G full-image samples per channel.  The atlas stacks
     every group's image vertically into one (Ht, Wmax, 3) array plus
     per-group row-offset/size tables, so ONE gather serves all groups

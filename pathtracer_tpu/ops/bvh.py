@@ -1,6 +1,6 @@
 """Host-side BVH build -> flat device arrays.
 
-TPU-native counterpart of TriMesh::build_bvh_recur (reference:
+JAX counterpart of TriMesh::build_bvh_recur (reference:
 TriangleMesh.cpp:1029-1130): binary BVH, split axis = largest
 centroid-extent, 16 candidate split planes scored by area*count (SAH-lite),
 in-place partition of the triangle order (the permutation is returned so

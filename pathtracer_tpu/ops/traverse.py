@@ -1,20 +1,19 @@
 """Triangle-mesh intersection kernels: brute-force sweep + BVH traversal.
 
-TPU-native counterpart of Triangle::intersection + TriMesh::intersection
+JAX counterpart of Triangle::intersection + TriMesh::intersection
 (reference: TriangleMesh.h:67-111 precomputed edge-matrix barycentric test;
 TriangleMesh.cpp:1133-1319 stack traversal with near-first ordering and
 current-best-t pruning).
 
 Two strategies, same contract:
 
-* brute_force_hit — every ray tests every triangle, chunked so the triangle
-  soup streams through VMEM.  On TPU this BEATS divergent traversal for
-  small meshes (thousands of tris): it is pure dense VPU work with zero
-  gathers.  ~30 flops/test x T x N.
+* brute_force_hit — every ray tests every triangle, chunked over the
+  triangle soup: dense elementwise work with zero gathers, ~30 flops/test
+  x T x N.  The CPU tier for small meshes.
 
 * bvh_hit — lockstep wavefront traversal of the flat BVH (ops/bvh.py) with
-  a per-lane short stack.  Correct for any size; the Pallas VMEM-resident
-  version replaces its gathers for the multi-million-triangle configs.
+  a per-lane short stack.  Correct for any size; the CPU tier for big
+  meshes and the XLA oracle of the GPU kernel (ops/bvh_kernel.py).
 
 Both return the winning triangle's (t, tri_id, alpha, beta, gamma) with the
 reference's semantics: strict t comparison, barycentric NaN/Inf clamps
@@ -35,8 +34,8 @@ BIG_T = np.float32(1e30)   # numpy: no backend init at import
 class TriSoup(NamedTuple):
     """Precomputed triangle data (reference triangleSoup, TriangleMesh.h:67-78).
 
-    Kept as separate (T,) component arrays — TPU layout rule: no trailing
-    small dims on big axes.
+    Kept as separate (T,) component arrays (ops/bvh_kernel.pack_tris packs
+    them into (T, 16) rows for the GPU kernel).
     """
 
     ax: jnp.ndarray; ay: jnp.ndarray; az: jnp.ndarray      # vertex A
@@ -50,8 +49,8 @@ class TriSoup(NamedTuple):
 def make_soup(tri_verts: np.ndarray, device: bool = True) -> TriSoup:
     """From (T,3,3) corner positions (in BVH order).
 
-    device=False keeps the fields as host numpy (the LEAN upload path
-    reads a few columns host-side and never ships the full soup)."""
+    device=False keeps the fields as host numpy (upload_mesh packs the
+    kernel's triangle rows and face normals from them host-side)."""
     a = tri_verts[:, 0].astype(np.float64)
     u = tri_verts[:, 1].astype(np.float64) - a
     v = tri_verts[:, 2].astype(np.float64) - a
@@ -125,20 +124,32 @@ def _tri_test_block(soup: TriSoup, sl, org, dirn):
     return jnp.where(ok, t, BIG_T), alpha, beta, gamma
 
 
+def _soup_chunks(soup: TriSoup, chunk: int):
+    """Soup fields reshaped to (K, C): K = ceil(T / chunk) chunks of equal
+    width C <= chunk, padded with at most K - 1 zero triangles (zero
+    normal -> NaN t -> never accepted)."""
+    t_total = soup.ax.shape[0]
+    k = -(-t_total // chunk)
+    width = -(-t_total // k)
+    pad = k * width - t_total
+    return TriSoup(*[jnp.pad(x, (0, pad)).reshape(k, width) for x in soup])
+
+
 def brute_force_hit(soup: TriSoup, org, dirn, t_max=None, t_min=None,
                     chunk: int = 2048) -> MeshHit:
-    """Dense all-pairs sweep, chunked over triangles (closest hit).
+    """Dense all-pairs sweep, chunked over triangles under a lax.scan
+    (closest hit; ties go to the lowest triangle index).
 
     t_min (N,): reject hits at or below it (alpha-cutout re-intersection)."""
     n = org.shape[0]
-    t_total = soup.ax.shape[0]
-    best_t = jnp.full((n,), BIG_T) if t_max is None else t_max
-    best_tri = jnp.full((n,), -1, jnp.int32)
-    best_ab = (jnp.ones((n,)), jnp.zeros((n,)), jnp.zeros((n,)))
+    chunks = _soup_chunks(soup, chunk)
+    width = chunks.ax.shape[1]
+    starts = jnp.arange(chunks.ax.shape[0], dtype=jnp.int32) * width
 
-    for start in range(0, t_total, chunk):
-        sl = slice(start, min(start + chunk, t_total))
-        t, al, be, ga = _tri_test_block(soup, sl, org, dirn)
+    def fold(carry, xs):
+        best_t, best_tri, best_ab = carry
+        blk, start = TriSoup(*xs[0]), xs[1]
+        t, al, be, ga = _tri_test_block(blk, slice(None), org, dirn)
         if t_min is not None:
             t = jnp.where(t > t_min[:, None], t, BIG_T)
         j = jnp.argmin(t, axis=-1)                          # (N,)
@@ -150,19 +161,26 @@ def brute_force_hit(soup: TriSoup, org, dirn, t_max=None, t_min=None,
             jnp.where(win, jnp.take_along_axis(x, jj, axis=-1)[:, 0], old)
             for x, old in zip((al, be, ga), best_ab))
         best_t = jnp.where(win, tj, best_t)
-    al, be, ga = best_ab
+        return (best_t, best_tri, best_ab), None
+
+    carry = (jnp.full((n,), BIG_T) if t_max is None else t_max,
+             jnp.full((n,), -1, jnp.int32),
+             (jnp.ones((n,)), jnp.zeros((n,)), jnp.zeros((n,))))
+    (best_t, best_tri, (al, be, ga)), _ = jax.lax.scan(
+        fold, carry, (tuple(chunks), starts))
     return MeshHit(t=best_t, tri=best_tri, alpha=al, beta=be, gamma=ga)
 
 
 def brute_force_any(soup: TriSoup, org, dirn, t_limit, chunk: int = 2048):
     """Any-hit with t < t_limit (shadow rays). Returns bool (N,)."""
-    n = org.shape[0]
-    t_total = soup.ax.shape[0]
-    blocked = jnp.zeros((n,), bool)
-    for start in range(0, t_total, chunk):
-        sl = slice(start, min(start + chunk, t_total))
-        t, _, _, _ = _tri_test_block(soup, sl, org, dirn)
-        blocked = blocked | jnp.any(t < t_limit[:, None], axis=-1)
+    def fold(blocked, xs):
+        t, _, _, _ = _tri_test_block(TriSoup(*xs), slice(None), org, dirn)
+        # min(t) < limit == any(t < limit); a float reduction (see
+        # core/vec.any_true)
+        return blocked | (jnp.min(t, axis=-1) < t_limit), None
+
+    blocked, _ = jax.lax.scan(fold, jnp.zeros((org.shape[0],), bool),
+                              tuple(_soup_chunks(soup, chunk)))
     return blocked
 
 
@@ -171,7 +189,7 @@ def brute_force_any(soup: TriSoup, org, dirn, t_limit, chunk: int = 2048):
 # ---------------------------------------------------------------------------
 
 class BVHArrays(NamedTuple):
-    """Flat BVH on device; component arrays (M,) per the TPU layout rule."""
+    """Flat BVH on device as (M,) component arrays."""
 
     lo_x: jnp.ndarray; lo_y: jnp.ndarray; lo_z: jnp.ndarray
     hi_x: jnp.ndarray; hi_y: jnp.ndarray; hi_z: jnp.ndarray
@@ -242,7 +260,7 @@ def bvh_hit(bvh: BVHArrays, soup: TriSoup, org, dirn, max_leaf: int,
              jnp.ones((n,)), jnp.zeros((n,)), jnp.zeros((n,)))
 
     def cond(s):
-        return jnp.any(s[2] > 0)
+        return jnp.max(s[2]) > 0      # sp >= 0; no bool reduction
 
     def body(s):
         stack, tstack, sp, best_t, best_tri, al, be, ga = s
@@ -311,66 +329,6 @@ def bvh_hit(bvh: BVHArrays, soup: TriSoup, org, dirn, max_leaf: int,
     state = jax.lax.while_loop(cond, body, state)
     _, _, _, best_t, best_tri, al, be, ga = state
     return MeshHit(t=best_t, tri=best_tri, alpha=al, beta=be, gamma=ga)
-
-
-def bvh_hit_sparse(bvh: BVHArrays, soup: TriSoup, org, dirn, active,
-                   max_leaf: int, t, tri, alpha, beta,
-                   chunk: int = 65536, t_min=None,
-                   stack_depth: int = 48):
-    """Exact lockstep traversal for a SPARSE set of active lanes.
-
-    Full-width bvh_hit at wavefront scale faults the TPU runtime (round-2
-    finding: the (stack_depth, N) per-lane stack scatter at N~2M lanes on a
-    multi-million-node BVH crashes the worker; N<=64k is stable).  This
-    variant argsorts active lanes to the front and traverses fixed-size
-    chunks under a while_loop that stops at the first chunk holding no
-    active lane — zero traversal cost when nothing is active, bounded
-    memory always.
-
-    (t, tri, alpha, beta) are the running best hit per lane; active lanes
-    whose traversal finds a closer hit are improved in place, all other
-    lanes pass through untouched.  Matches the reference's closest-hit
-    semantics (TriangleMesh.cpp:1133-1235) like bvh_hit.
-    """
-    n = org.shape[0]
-    chunk = int(min(chunk, n))
-    nchunks = -(-n // chunk)
-    pad = nchunks * chunk - n
-
-    # active lanes first (stable sort of the inactive flag)
-    order = jnp.argsort(active == False)  # noqa: E712  (jnp bool sort)
-    if pad:
-        order = jnp.concatenate([order, jnp.zeros((pad,), order.dtype)])
-    t_min_l = (None if t_min is None
-               else jnp.broadcast_to(t_min, (n,)))
-
-    def cond(state):
-        i = state[0]
-        idx = jax.lax.dynamic_slice_in_dim(
-            order, jnp.minimum(i, nchunks - 1) * chunk, chunk)
-        return (i < nchunks) & jnp.any(active[idx])
-
-    def body(state):
-        i, t, tri, al, be = state
-        idx = jax.lax.dynamic_slice_in_dim(order, i * chunk, chunk)
-        act_c = active[idx]
-        t_c = t[idx]
-        fh = bvh_hit(bvh, soup, org[idx], dirn[idx], max_leaf=max_leaf,
-                     stack_depth=stack_depth,
-                     t_init=jnp.where(act_c, t_c, 0.0),
-                     t_min=None if t_min_l is None else t_min_l[idx])
-        win = act_c & (fh.t < t_c)
-        # padded duplicate indices carry win=False or recompute the same
-        # ray -> scatter writes are consistent
-        t = t.at[idx].set(jnp.where(win, fh.t, t_c))
-        tri = tri.at[idx].set(jnp.where(win, fh.tri, tri[idx]))
-        al = al.at[idx].set(jnp.where(win, fh.alpha, al[idx]))
-        be = be.at[idx].set(jnp.where(win, fh.beta, be[idx]))
-        return (i + 1, t, tri, al, be)
-
-    state = (jnp.int32(0), t, tri, alpha, beta)
-    _, t, tri, alpha, beta = jax.lax.while_loop(cond, body, state)
-    return t, tri, alpha, beta
 
 
 def _tri_test_lane(soup: TriSoup, tri, org, dirn):

@@ -1,15 +1,15 @@
 """Multi-host execution: process bootstrap + global meshes + host-local IO.
 
 The reference scales inside one box with OpenMP threads (Raytracer.cpp
-render loops); the TPU-native scaling story is SPMD over a multi-host
-pod slice: every host runs this same program, `jax.distributed.
-initialize` wires the JAX runtime across them, and the `Mesh` spans the
-GLOBAL device set so `shard_map` collectives (film psum, scene-axis
-all_gather) ride ICI between chips and DCN between hosts.
+render loops); here the scaling story is SPMD over several hosts: every
+host runs this same program, `jax.distributed.initialize` wires the JAX
+runtime across them, and the `Mesh` spans the GLOBAL device set so
+`shard_map` collectives (film psum) ride the device links within a host
+and the network between hosts.
 
 What lives here:
-  * init_multihost()    — idempotent jax.distributed bootstrap (env-var
-                          driven on TPU pods, explicit args elsewhere).
+  * init_multihost()    — idempotent jax.distributed bootstrap (explicit
+                          coordinator address, process count and id).
   * global_mesh()       — a ('dp','sp') Mesh over ALL processes' devices.
   * host_shard_rows()   — which image rows this process renders; pair
                           with `jax.make_array_from_process_local_data`
@@ -40,9 +40,9 @@ def init_multihost(coordinator_address: Optional[str] = None,
                    process_id: Optional[int] = None) -> Tuple[int, int]:
     """Bootstrap the cross-host runtime; returns (process_id, n_processes).
 
-    On a TPU pod slice the arguments come from the environment and may
-    all be None (jax.distributed reads the TPU metadata); elsewhere pass
-    them explicitly (reference-free: this replaces nothing in the C++ —
+    Pass the coordinator address, process count and this process's id
+    explicitly; on clusters whose environment jax.distributed can read they
+    may be None (reference-free: this replaces nothing in the C++ —
     the reference never scaled past one box).  Idempotent: safe to call
     again (including in single-process runs, where it is a no-op).
     """
@@ -110,7 +110,7 @@ def checkpoint_path(base: str) -> str:
 class PreemptionGuard:
     """Preemption-aware render loops (SURVEY §5 failure recovery).
 
-    TPU pod slices are preemptible: the scheduler sends SIGTERM and gives
+    Preemptible machines get a SIGTERM from the scheduler and
     the job a grace window.  Used as a context manager, this arms a
     handler that only FLAGS the request — the render loop finishes its
     in-flight wave, checkpoints, and exits cleanly (the functional wave

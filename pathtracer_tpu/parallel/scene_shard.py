@@ -1,8 +1,7 @@
-"""Scene-sharded intersection: the BVH partitioned across chips.
+"""Scene-sharded intersection: the BVH partitioned across devices.
 
-The 23.7M-triangle config cannot hold its BVH on one chip's memory budget
-(SURVEY §7 'sharded BVH').  The TPU-native mechanism: partition the
-triangle set spatially (contiguous ranges of the BVH build order are
+For scenes whose BVH outgrows one device's memory (SURVEY §7 'sharded
+BVH'), partition the triangle set spatially (contiguous ranges of the BVH build order are
 spatially coherent), give each chip one partition + its sub-BVH, and
 combine per-ray closest hits across the 'scene' mesh axis.
 
@@ -12,8 +11,8 @@ picks the winner.  It is exact and simple; the refinement (ray-sorted
 all-to-all routing rays only to partitions whose AABB they enter,
 SURVEY §2.7) reuses the same partition layout.
 
-Works today on the virtual CPU mesh; on a pod the same shard_map runs over
-ICI.
+These are standalone hit functions (tested on the virtual CPU mesh); the
+renderer does not use them yet — it replicates the scene on every device.
 """
 
 from __future__ import annotations
@@ -159,9 +158,9 @@ def make_routed_hit(mesh: Mesh, max_leaf: int, axis: str = 'scene',
                     block: int = 4096):
     """v2: each chip traverses ONLY rays entering its partition AABB.
 
-    The TPU-native routing: rays stay replicated (they are tiny next to
-    the sharded geometry — the collective is one result all_gather over
-    ICI, Geometry.h:1392-1394 coherence hints become the sort), but each
+    Routing: rays stay replicated (they are tiny next to the sharded
+    geometry — the collective is one result all_gather,
+    Geometry.h:1392-1394 coherence hints become the sort), but each
     chip sorts rays by (enters-my-partition, direction octant) and sweeps
     just ceil(live/block) blocks of the coherent live prefix through its
     LOCAL sub-BVH — per-chip work scales with the rays that actually
@@ -224,7 +223,7 @@ def make_routed_hit(mesh: Mesh, max_leaf: int, axis: str = 'scene',
         t = jnp.where(tri_ok, t, BIG_T)
         gtri = jnp.where(tri_ok, tri + base[0], -1)
 
-        # combine across scene shards (one gather over ICI)
+        # combine across scene shards (one all-gather)
         t_all = jax.lax.all_gather(t, axis)
         g_all = jax.lax.all_gather(gtri, axis)
         j = jnp.argmin(t_all, axis=0)
@@ -253,7 +252,7 @@ def make_ring_hit(mesh: Mesh, max_leaf: int, axis: str = 'scene'):
     The pipeline-parallel analogue for a path tracer (SURVEY §2.7 'bounce
     pipelining'): instead of replicating the wavefront on every chip (the
     broadcast/routed forms above), each chip holds 1/D of the rays and 1/D
-    of the triangles.  Ray blocks circulate around the ICI ring via
+    of the triangles.  Ray blocks circulate around the device ring via
     `ppermute`, carrying their running best (t, tri); each of the D steps a
     chip intersects the visiting block against its LOCAL sub-BVH, pruned by
     the carried best t (so later ring stages skip subtrees already beaten —
@@ -337,130 +336,6 @@ def make_ring_hit(mesh: Mesh, max_leaf: int, axis: str = 'scene'):
     return jax.jit(run)
 
 
-def shard_clustered_mesh(mesh_arrays, n_shards: int, axis: str = 'scene'):
-    """v3 — the INTEGRATED config-5 path: partition a cluster-tier mesh's
-    CLUSTERS (not raw triangles) over the scene axis.
-
-    Returns a MeshArrays whose cluster arrays + shade_pack carry a
-    leading (D,) device axis; scene.intersect / intersect_shadow /
-    _shade_fetch combine across `axis` when `scene_axis` is set (see
-    scene/mesh.py field docs).  Each shard:
-      * holds a CONTIGUOUS cluster range (contiguous = contiguous BVH
-        order = spatially coherent), padded to a common count with
-        inert clusters (inverted AABBs — never culled in, never swept);
-      * routes rays for free via root_exit_clamp over its LOCAL bounds
-        (rays missing the partition AABB go dead before any sweep);
-      * owns the shade_pack rows of its triangle range (one in-range
-        gather + psum assembles shading rows).
-    Cluster tri ids are global BVH positions (starts ride the packed
-    tail), so per-shard winners combine with a plain argmin.
-
-    Reference counterpart: Scene::intersection over one top-level Embree
-    structure (Geometry.cpp:589-688) — here the structure is split
-    across chips because config 5 (23.7M tris, README.md:70) outgrows
-    one chip's HBM."""
-    from ..ops import pallas_cluster as pc
-
-    m = mesh_arrays
-    assert m.use_cluster and m.clustered, 'scene axis needs the cluster tier'
-    assert m.shade_pack is not None and any(
-        nm == 'bary' for nm, _, _ in m.shade_cols), \
-        'scene axis needs the packed bary columns'
-    arrs = [np.asarray(a) for a in m.clustered]
-    c = m.n_clusters
-    packed = arrs[16]
-    width = packed.shape[2]
-    n_sub = (width - pc.TAIL) // (3 * pc.SUBT + pc.SUB_META)
-    tail0 = n_sub * 3 * pc.SUBT
-    starts = (packed[:, 3, tail0].astype(np.int64) * 4096
-              + packed[:, 3, tail0 + 128].astype(np.int64))
-    t_total = int(m.shade_pack.shape[0])
-
-    # cluster-aligned bounds balancing TRIANGLES, not cluster indices:
-    # subtree-aligned clusters have variable occupancy, and an
-    # index-split measured up to 3.8x row skew across shards (the
-    # compute/shade share each device carries).  Worst-case skew is now
-    # bounded by one cluster's size (test_scene_axis_shard_balance).
-    starts_ext = np.concatenate([starts, [t_total]]).astype(np.int64)
-    targets = np.linspace(0, t_total, n_shards + 1)
-    bounds = np.searchsorted(starts_ext, targets, side='left')
-    bounds = np.clip(bounds, 0, c)
-    bounds[0], bounds[-1] = 0, c
-    bounds = np.maximum.accumulate(bounds)
-    c_pad = int(np.max(np.diff(bounds)))
-    row_b = np.concatenate([starts_ext[bounds[:-1]],
-                            [t_total]]).astype(np.int64)
-    r_pad = int(np.max(np.diff(row_b)))
-
-    def pad_c(a, fill):
-        out = np.full((n_shards, c_pad) + a.shape[1:], fill, a.dtype)
-        for d in range(n_shards):
-            seg = a[bounds[d]:bounds[d + 1]]
-            out[d, :len(seg)] = seg
-        return jnp.asarray(out)
-
-    cb = [pad_c(arrs[10 + k], BIG_T if k < 3 else -BIG_T)
-          for k in range(6)]
-    packed_sh = pad_c(packed, 0.0)
-    # top-BVH arrays are unused on the dense-cull tier (c_pad <=
-    # DENSE_CULL_MAX by construction) — ship 1-node dummies
-    assert c_pad <= pc.DENSE_CULL_MAX
-    zf = jnp.zeros((n_shards, 1), jnp.float32)
-    zi = jnp.zeros((n_shards, 1), jnp.int32)
-    clustered = (zf, zf, zf, zf, zf, zf, zi, zi, zi, zi,
-                 cb[0], cb[1], cb[2], cb[3], cb[4], cb[5], packed_sh)
-    if len(arrs) > 17:
-        # per-cluster normal bounds (backface cull) shard with the
-        # clusters; zero-padded rows read as always-back-facing, which
-        # is exactly right for the dummy pad clusters
-        clustered = clustered + (pad_c(arrs[17], 0.0),)
-
-    sp = np.asarray(m.shade_pack)
-    sp_sh = np.zeros((n_shards, r_pad, sp.shape[1]), sp.dtype)
-    for d in range(n_shards):
-        seg = sp[row_b[d]:row_b[d + 1]]
-        sp_sh[d, :len(seg)] = seg
-    return m.replace(
-        clustered=clustered,
-        shade_pack=jnp.asarray(sp_sh),
-        shard_row0=jnp.asarray(row_b[:-1], jnp.int32),
-        shard_rows=jnp.asarray(np.diff(row_b), jnp.int32),
-        n_clusters=c_pad,
-        cluster_top_max_leaf=1,
-        scene_axis=axis,
-    )
-
-
-def localize_scene(sc):
-    """Strip the leading (1,) shard axis from scene-axis mesh leaves —
-    call FIRST inside any shard_map body that traces the scene."""
-    if not any(getattr(m, 'scene_axis', None) for m in sc.meshes):
-        return sc
-    meshes = tuple(
-        m.replace(clustered=tuple(a[0] for a in m.clustered),
-                  shade_pack=m.shade_pack[0],
-                  shard_row0=m.shard_row0[0],
-                  shard_rows=m.shard_rows[0])
-        if m.scene_axis else m
-        for m in sc.meshes)
-    return sc.replace(meshes=meshes)
-
-
-def scene_shard_specs(sc, axis: str = 'scene'):
-    """PartitionSpec pytree for a scene: P(axis) on scene-axis mesh
-    leaves, replicated P() everywhere else (shard_map in_specs)."""
-    specs = jax.tree.map(lambda x: P(), sc)
-    meshes = []
-    for ms, m in zip(specs.meshes, sc.meshes):
-        if getattr(m, 'scene_axis', None):
-            ms = ms.replace(
-                clustered=tuple(P(axis) for _ in m.clustered),
-                shade_pack=P(axis), shard_row0=P(axis),
-                shard_rows=P(axis))
-        meshes.append(ms)
-    return specs.replace(meshes=tuple(meshes))
-
-
 def make_sharded_hit(mesh: Mesh, axis: str = 'scene'):
     """Jitted (sharded_mesh, org, dirn) -> (t, global_tri) closest hit.
 
@@ -495,25 +370,22 @@ def make_sharded_hit(mesh: Mesh, axis: str = 'scene'):
 
 def scene_axis_comm_model(n_rays: int, d: int, n_bounces: int,
                           shade_width: int):
-    """Per-WAVE communication account of the scene-sharded render path.
+    """Per-WAVE communication account of a scene-sharded render path.
 
-    The scene axis replicates rays and shards clusters: each device
-    sweeps its own cluster partition for EVERY lane, then the per-bounce
-    combines move (BASELINE ≥8x scaling target needs this to stay small
-    vs the 1/D compute share):
+    A scene axis replicates rays and shards the geometry: each device
+    intersects its own partition for EVERY lane, then the per-bounce
+    combines move (this has to stay small next to the 1/D compute share):
 
-      * closest hit:  all_gather of (t f32, tri i32) over the axis
-        (scene._merge_mesh_hit) — each device RECEIVES (d-1)*N*8 bytes;
-      * shadow any:   psum of an i32 occlusion mask
-        (scene.intersect_shadow) — ring cost 2*(d-1)/d*N*4 bytes;
-      * shading row:  psum of the winner's packed shade row
-        (scene._shade_fetch owner-gather) — 2*(d-1)/d*N*shade_width*4.
+      * closest hit:  all_gather of (t f32, tri i32) over the axis —
+        each device RECEIVES (d-1)*N*8 bytes;
+      * shadow any:   psum of an i32 occlusion mask — ring cost
+        2*(d-1)/d*N*4 bytes;
+      * shading row:  psum of the winner's packed shade row (owner
+        gather) — 2*(d-1)/d*N*shade_width*4.
 
     Returns a dict with per-collective and total bytes per device per
-    wave, plus the comm-per-ray figure the scaling model uses: compute
-    per device shrinks ~1/d (cluster share) while comm per device GROWS
-    ~(d-1)/d * const — the crossover sets the useful scene-axis width
-    for a given per-chip rays/s and ICI bandwidth."""
+    wave, plus comm bytes per ray-bounce: compute per device shrinks ~1/d
+    while comm per device GROWS ~(d-1)/d * const."""
     n = n_rays
     ag_closest = (d - 1) * n * 8 * n_bounces
     ps_shadow = int(2 * (d - 1) / d * n * 4) * n_bounces
@@ -527,32 +399,4 @@ def scene_axis_comm_model(n_rays: int, d: int, n_bounces: int,
         'psum_shade_bytes': ps_shade,
         'total_bytes_per_device_per_wave': total,
         'comm_bytes_per_ray_bounce': total / max(n * n_bounces, 1),
-    }
-
-
-def scene_axis_scaling_model(rays_per_s_1chip: float, d: int,
-                             n_bounces: int, shade_width: int,
-                             ici_bytes_per_s: float = 4.5e10):
-    """Crude compute/comm ratio for the scene axis at width d.
-
-    compute_per_ray_bounce shrinks to 1/d of the single-chip cost
-    (cluster share, assuming shard balance — asserted in
-    test_scene_axis_render); comm_per_ray_bounce comes from
-    scene_axis_comm_model.  ici_bytes_per_s defaults to a conservative
-    one-direction v5e ICI ring figure (~45 GB/s effective).  Returns the
-    modeled speedup vs one chip and the comm fraction."""
-    cm = scene_axis_comm_model(1_000_000, d, n_bounces, shade_width)
-    comm_s_per_ray_bounce = (cm['comm_bytes_per_ray_bounce']
-                             / ici_bytes_per_s)
-    # rays_per_s_1chip counts live ray-bounce ops (hit + NEE shadow per
-    # bounce = one unit), so the single-chip cost of one ray-bounce is
-    # 1/rps; a balanced scene shard does 1/d of it
-    base_s_per_ray_bounce = 1.0 / rays_per_s_1chip
-    per_ray = base_s_per_ray_bounce / d + comm_s_per_ray_bounce
-    speedup = base_s_per_ray_bounce / per_ray
-    return {
-        'devices': d,
-        'modeled_speedup_vs_1chip': speedup,
-        'comm_fraction': comm_s_per_ray_bounce / per_ray,
-        'ici_bytes_per_s': ici_bytes_per_s,
     }

@@ -2,7 +2,7 @@
 
 The reference's only parallelism is OpenMP threads over pixel rows / 4x4
 batches on one machine (reference: Raytracer.cpp:1455-1459, 1590-1597;
-SURVEY §2.7).  The TPU-native equivalents implemented here:
+SURVEY §2.7).  The wavefront equivalents implemented here:
 
   * 'dp' mesh axis — image rows sharded across chips (the OpenMP-row-loop
     analogue): each chip traces its pixel rows' wavefront.
@@ -14,9 +14,10 @@ Film partials live per-chip and are summed with `jax.lax.psum` (the
 per-thread-accumulator merge, Raytracer.cpp:1576-1685).  Gradients of the
 differentiable render are psum'd by the shard_map transpose automatically.
 
-Scene/BVH sharding ('tp'-like, for the 23.7M-tri config) rides a
-'scene' axis with per-partition sub-BVHs and routed rays
-(parallel/scene_shard.py) — the CP/ring-attention analogue.
+Scene/BVH partitioning over devices (per-partition sub-BVHs with
+broadcast-combine, routed or ring-pipelined rays) lives in
+parallel/scene_shard.py as standalone hit functions; the renderer itself
+replicates the scene on every device.
 
 On bounce-stage pipelining (the PP analogue, SURVEY §2.7): deliberately
 NOT implemented as a device axis.  PP exists in ML stacks to split
@@ -24,9 +25,9 @@ NOT implemented as a device axis.  PP exists in ML stacks to split
 per-stage parameters — every bounce needs the SAME scene data, so
 pipelining bounces across chips would replicate (or re-shard) the scene
 anyway while adding warmup/drain bubbles and a full ray-state ppermute
-per bounce over ICI.  dp/sp sharding reaches the same utilization with
-zero transfers, and the scene-memory problem PP would solve is solved
-by the scene axis instead.  The in-chip analogue of pipelining — keeping
+per bounce.  dp/sp sharding reaches the same utilization with zero
+transfers; the scene-memory problem PP would solve belongs to a scene
+axis (parallel/scene_shard.py).  The in-chip analogue of pipelining — keeping
 the chip busy across bounce stages — is the wavefront itself (bounce-
 major loop + compaction + octant sort, render/integrator.py).
 """
@@ -49,21 +50,16 @@ from ..render import integrator
 
 
 def make_mesh(n_devices: Optional[int] = None, dp: Optional[int] = None,
-              sp: int = 1, scene: int = 1) -> Mesh:
-    """Build a ('dp', 'sp'[, 'scene']) mesh over the first devices.
-
-    The 'scene' axis (config 5) shards the geometry itself
-    (parallel/scene_shard.shard_clustered_mesh); rays are replicated
-    across it and winners combine over ICI."""
+              sp: int = 1) -> Mesh:
+    """Build a ('dp', 'sp') mesh over the first devices (a flat reshape:
+    every pair of cards is one NVLink hop apart, so placement does not
+    matter)."""
     devs = jax.devices()
     n = n_devices or len(devs)
     if dp is None:
-        dp = n // (sp * scene)
-    need = dp * sp * scene
+        dp = n // sp
+    need = dp * sp
     assert need <= len(devs), f"need {need} devices, have {len(devs)}"
-    if scene > 1:
-        arr = np.array(devs[:need]).reshape(dp, sp, scene)
-        return Mesh(arr, ('dp', 'sp', 'scene'))
     arr = np.array(devs[:need]).reshape(dp, sp)
     return Mesh(arr, ('dp', 'sp'))
 
@@ -133,27 +129,18 @@ def make_sharded_render(mesh: Mesh, cfg, film_ratio):
 
     rows_per_shard = h // dp
 
-    has_scene = 'scene' in mesh.axis_names
-
     def sharded(sc, cam, cp_table):
         def body(sc, cam, cp_shard, ks, pi, pj):
-            if has_scene:
-                from . import scene_shard
-                sc = scene_shard.localize_scene(sc)
             row0 = jax.lax.axis_index('dp') * rows_per_shard
             image, count = _render_shard(sc, cam, cp_shard, ks, pi, pj,
                                          row0, cfg)
-            # film partials are identical across 'scene' (every shard
-            # sees the combined hits), so the reduce stays over dp/sp
             image = jax.lax.psum(image, ('dp', 'sp'))
             count = jax.lax.psum(count, ('dp', 'sp'))
             return image, count
 
-        from . import scene_shard
-        sc_spec = scene_shard.scene_shard_specs(sc) if has_scene else P()
         return shard_map(
             body, mesh=mesh,
-            in_specs=(sc_spec, P(), P('dp'), P('sp'), P('dp'), P('dp')),
+            in_specs=(P(), P(), P('dp'), P('sp'), P('dp'), P('dp')),
             out_specs=(P(), P()),
             check_vma=False,
         )(sc, cam, cp_table, sample_ids, pix_i_all, pix_j_all)
@@ -166,8 +153,8 @@ def make_train_step(mesh: Mesh, cfg, film_ratio, lr=1e-2):
     target image by gradient descent.  Gradients flow through the
     detached-sampling estimator and are all-reduced by the shard_map
     transpose (the psum in the forward becomes identity in the cotangent,
-    and the replicated-param cotangents are psum'd) — the TPU analogue of
-    gradient all-reduce overlapped with backward (BASELINE north star).
+    and the replicated-param cotangents are psum'd) — gradient all-reduce
+    overlapped with backward.
 
     Returns jitted fn: (params, sc, cam, cp_table, target) ->
     (loss, new_params), where params = dict(kd, ks, light_intensity).

@@ -3,7 +3,7 @@
 The reference post-filters offline renders with Intel Open Image Denoise
 fed by color+albedo+normal buffers (reference: Raytracer.cpp:1721-1746; the
 aux buffers accumulate UNSPLATTED, :1631-1645, because OIDN cannot handle
-splatting).  The TPU-native slot keeps the same interface — denoise(color,
+splatting).  This slot keeps the same interface — denoise(color,
 albedo, normal) — with an edge-avoiding a-trous wavelet filter (Dammertz et
 al. 2010 family) implemented as pure stencil convolutions: ideal VPU work,
 and the hook is swappable for a learned model later.

@@ -2,7 +2,7 @@
 
 The reference post-filters with Intel Open Image Denoise fed by
 color+albedo+normal buffers (reference: Raytracer.cpp:1721-1746).  The
-TPU-native equivalent is a small kernel-predicting CNN (KPCN family,
+equivalent here is a small kernel-predicting CNN (KPCN family,
 Bako et al. 2017, scaled down): a conv stack reads tonemapped radiance
 plus the primary-hit auxiliaries and predicts a per-pixel 5x5 filter
 kernel (softmax-normalized, so output radiance is a convex combination
@@ -26,7 +26,7 @@ from typing import Optional
 import numpy as np
 import jax
 import jax.numpy as jnp
-import flax.linen as nn
+from jax import lax
 
 KSIZE = 5                     # predicted kernel width
 _R = KSIZE // 2
@@ -34,18 +34,29 @@ WEIGHTS_PATH = os.path.join(os.path.dirname(__file__),
                             'denoiser_weights.npz')
 
 
-class KPCNLite(nn.Module):
-    """Conv stack -> per-pixel KSIZE*KSIZE kernel logits."""
+FEATURES = 48
+DEPTH = 5                     # hidden 3x3 conv layers (+1 output layer)
+IN_CHANNELS = 10
 
-    features: int = 48
-    depth: int = 5
 
-    @nn.compact
-    def __call__(self, x):
-        for _ in range(self.depth):
-            x = nn.Conv(self.features, (3, 3), padding='SAME')(x)
-            x = nn.relu(x)
-        return nn.Conv(KSIZE * KSIZE, (3, 3), padding='SAME')(x)
+def kpcn_lite(params, x):
+    """Conv stack -> per-pixel KSIZE*KSIZE kernel logits.
+
+    params: {'Conv_i': {'kernel': (3,3,Cin,Cout), 'bias': (Cout,)}} for
+    i = 0..DEPTH, SAME padding, ReLU between layers.  (H,W,C) -> (H,W,25).
+    Products at full float32 precision: TF32 on a GPU would move the
+    predicted kernels visibly."""
+    n = len(params)
+    x = x[None]
+    for i in range(n):
+        p = params[f'Conv_{i}']
+        x = lax.conv_general_dilated(
+            x, p['kernel'], (1, 1), 'SAME',
+            dimension_numbers=('NHWC', 'HWIO', 'NHWC'),
+            precision=lax.Precision.HIGHEST) + p['bias']
+        if i < n - 1:
+            x = jax.nn.relu(x)
+    return x[0]
 
 
 def _tonemap(c):
@@ -80,13 +91,19 @@ def apply_kernels(color, logits):
 def denoise_apply(params, color, albedo, normal):
     """Denoise an HDR buffer with trained params."""
     x = features_from_buffers(color, albedo, normal)
-    logits = KPCNLite().apply({'params': params}, x)
+    logits = kpcn_lite(params, x)
     return apply_kernels(color, logits)
 
 
 def init_params(rng_key):
-    x = jnp.zeros((32, 32, 10), jnp.float32)
-    return KPCNLite().init(rng_key, x)['params']
+    """Random weights (LeCun-normal kernels, zero biases)."""
+    init = jax.nn.initializers.lecun_normal()
+    chans = [IN_CHANNELS] + [FEATURES] * DEPTH + [KSIZE * KSIZE]
+    keys = jax.random.split(rng_key, len(chans) - 1)
+    return {f'Conv_{i}': {
+        'kernel': init(keys[i], (3, 3, chans[i], chans[i + 1]), jnp.float32),
+        'bias': jnp.zeros((chans[i + 1],), jnp.float32)}
+        for i in range(len(chans) - 1)}
 
 
 def save_weights(params, path: str = WEIGHTS_PATH):

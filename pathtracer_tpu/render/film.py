@@ -1,6 +1,6 @@
 """Film: Gaussian splat accumulation + SAT border normalization + tonemap.
 
-TPU-native counterpart of the reference's splatting loops
+JAX counterpart of the reference's splatting loops
 (reference: Raytracer.cpp:1486-1497 splat, :1276-1291 + 1354-1374 summed-area
 filter-integral tables, :1540-1547 gamma/u8 encode).  Per-sample nested splat
 loops become (2F+1)^2 vectorized scatter-adds over the whole wavefront, which
@@ -90,7 +90,7 @@ def splat(film: FilmSpec, image, sample_count, colors, dx, dy, row0=0,
     the same w accumulating into sample_count; image rows are flipped
     (row 0 = top = sensor row H-1), matching the reference's (H-i-1).
 
-    TPU note: samples arrive one-per-pixel in grid order, so the splat is a
+    Samples arrive one-per-pixel in grid order, so the splat is a
     gather stencil, not a scatter: for each of the (2F+1)^2 offsets the whole
     weighted color plane shifts by (oi,oj) and adds elementwise into the
     padded film.  This replaced an .at[].add scatter that cost 1.26 s/wave

@@ -1,8 +1,8 @@
-"""Wavefront path integrator — the TPU-native getColor.
+"""Wavefront path integrator — the JAX getColor.
 
 The reference integrates radiance with a per-thread circular queue of path
 continuations popped one at a time (reference: Raytracer.cpp:196-664,
-Contrib queue Raytracer.h:15-23,114-115).  On TPU the queue becomes a
+Contrib queue Raytracer.h:15-23,114-115).  Here the queue becomes a
 *wavefront*: every path in flight is a lane of big SoA arrays, the bounce
 loop is bounce-major, and branch divergence (miss/dome/light/mirror/
 refract/diffuse) becomes lane masking that XLA fuses into a handful of
@@ -304,29 +304,14 @@ def _sort_wavefront(state: PathState, cp_r12, bg_pixel, lane_id):
     """Reorder lanes: alive first, grouped by direction octant.
 
     The secondary-ray re-sorting of SURVEY §2.7 (the Embree coherent/
-    incoherent hint become explicit): packets of similar directions keep
-    the Pallas BVH traversal coherent after the first bounce, and dead
-    lanes cluster at the tail.  A stable argsort keeps determinism; the
-    original order is restored through lane_id at the end of the trace.
-
-    MEASURED, DO NOT REDO: adding a Morton-of-origin sub-key inside each
-    octant (27-bit, wave-local bounds) made the 2.4M-tri cluster e2e
-    SLOWER — 6.45 s/wave vs 4.85 baseline at 1080p (commit 12d7dc0,
-    reverted).  The STABLE sort already preserves pixel-tile order
-    within each octant, which on smooth surfaces carries position AND
-    direction locality; Morton re-shuffling by exact position destroys
-    the direction sub-locality packets also need.
-
-    MEASURED, DO NOT REDO (round 4, scripts/tpu_ab_dirbins.py): FINER
-    direction bins also lose.  On the 2.4M-tri sphere's live bounce
-    rays (key = (bin << 13) | start-cluster in every case), full
-    two_level_hit: 8 sign-octants 1008ms; 6 cube-faces 1222ms; face+4x4
-    grid (96 bins, ~28deg cones) 1505ms; face+8x8 (384 bins) 2862ms.
-    Exact slots/packet barely move (92 -> 81 mean at 4x4) because
-    grazing rays individually cross dozens of shell clusters (per-lane
-    geometry, not packet spread), while finer bins scatter the stable
-    tile order and lose the position locality that DOES bound the
-    frustum.  The octant key is the measured optimum of this family.
+    incoherent hint become explicit): lanes of similar directions keep a
+    block of the GPU BVH traversal kernel on similar paths after the
+    first bounce, and dead lanes cluster at the tail.  A stable argsort
+    keeps determinism; the original order is restored through lane_id at
+    the end of the trace.  Within an octant the stable sort keeps
+    pixel-tile order, which on smooth surfaces carries position locality;
+    other keys (finer direction bins, Morton order of origins) have not
+    been measured on the GPU.
     """
     with jax.named_scope('octant_sort'):
         d = state.dirn
@@ -334,18 +319,14 @@ def _sort_wavefront(state: PathState, cp_r12, bg_pixel, lane_id):
                   + (d[:, 1] > 0).astype(jnp.int32) * 2
                   + (d[:, 2] > 0).astype(jnp.int32))
         # direction-major, surface-patch-minor: within an octant, lanes
-        # group by the cluster their ray STARTS on (hit.lkey) — measured
-        # 12% off the bounce-2 cluster sweep; cluster-major ordering
-        # measured 2x SLOWER (direction locality dominates)
+        # group by the BVH-order bucket of the triangle their ray STARTS
+        # on (hit.lkey)
         lk = jnp.clip(state.lkey, 0, 8191)
         key = jnp.where(state.alive, (octant << 13) | lk, 8 << 13)
         perm = jnp.argsort(key, stable=True)
 
         # Apply the permutation as ONE row gather of a packed (N, C)
-        # matrix instead of ~18 per-array gathers: (N, 3) arrays
-        # materialize lane-padded on TPU, so separate gathers each move
-        # a full padded tile row (measured 45ms per (N,3) gather in the
-        # e2e wave trace vs ~28ms for the whole packed gather).
+        # matrix instead of ~18 per-array gathers.
         f32 = [state.org, state.dirn, state.weight, state.color,
                state.normal_aux, state.albedo_aux, cp_r12]
         if bg_pixel is not None:
@@ -745,13 +726,9 @@ def trace_paths(sc: scn.SceneArrays, origins, dirs, rng_state, cp_r12,
         contiguous prefix; lanes are independent, so skipping all-dead
         segments changes nothing but the work done.
 
-        CONTROL-FLOW RULE (device fault, do not rediscover): this must
-        be a STATIC-length lax.scan over segment indices with the bounce
-        gated by lax.cond — a data-dependent lax.while_loop around a
-        bounce containing the Pallas cluster sweep kernel-faults the TPU
-        worker after 0-2 waves at multi-M-tri scale (the round-2
-        end-to-end cluster crash).  Dead-tail segments take the identity
-        branch, preserving the compaction win."""
+        A static-length lax.scan over segment indices with the bounce
+        gated by lax.cond: dead-tail segments take the identity branch,
+        which preserves the compaction win with a fixed-shape loop."""
         seg = n // COMPACT_SEGMENTS
         nseg = (jnp.sum(state.alive.astype(jnp.int32)) + seg - 1) // seg
 
@@ -792,8 +769,7 @@ def trace_paths(sc: scn.SceneArrays, origins, dirs, rng_state, cp_r12,
                 state, cp_r12, bg_pixel, lane_id)
 
     # at 1 bounce no sort ever ran (the loop sorts between bounces), so
-    # skip the unsort: it is a no-op AND its identity-permutation scatter
-    # check-fails the XLA:TPU scatter emitter (measured on v5e)
+    # the unsort would be an identity permutation: skip it
     if sort_rays and nb_bounces > 1:
         with jax.named_scope('unsort'):
             # scatter-inverse + one packed gather (see _sort_wavefront)

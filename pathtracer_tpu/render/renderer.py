@@ -1,6 +1,6 @@
 """Top-level renderer: sample scheduling, camera draws, waves, film.
 
-TPU-native counterpart of render_image / render_image_nopreviz
+JAX counterpart of render_image / render_image_nopreviz
 (reference: Raytracer.cpp:1424-1563, 1565-1797).  The reference's
 OpenMP-dynamic loops over rows / 4x4 batches become *waves*: all W*H pixels
 x chunk-of-samples rendered as one jitted SoA wavefront, host-looped over
@@ -8,7 +8,7 @@ sample chunks (the progressive schedule), film accumulated on device.
 
 RNG keying: path (pixel p, sample k) owns PCG32 stream key
   key64 = (seed << 32) | (p * nspp + k)
-seeded as pcg32(key, key) — the TPU replacement for the reference's 64
+seeded as pcg32(key, key) — the wavefront replacement for the reference's 64
 thread-local engines (Raytracer.cpp:1325-1327; SURVEY §2.7).
 """
 
@@ -41,11 +41,10 @@ class RenderConfig(NamedTuple):
     samples_per_wave: int = 4   # spp chunk traced per jit call
     double_frustum_start_t: float = 0.0
     has_denoiser: bool = False  # accumulate unsplatted aux for denoising
-    tile_size: int = -1         # >0: trace rays in tile-major order (packet
-                                # coherence for the Pallas mesh kernels);
+    tile_size: int = -1         # >0: trace rays in tile-major order (a
+                                # kernel block traces neighbouring pixels);
                                 # 0: row-major; -1 AUTO: 32 when the scene
-                                # holds meshes/pointsets (measured 6x on the
-                                # cluster tier: med slots/packet 52 -> 8)
+                                # holds meshes/pointsets/yarns
     sort_rays: bool = False     # re-sort the wavefront by direction octant
                                 # between bounces (secondary-ray coherence)
     compact_rays: bool = False  # stream compaction: skip all-dead lane
@@ -56,7 +55,6 @@ class RenderConfig(NamedTuple):
                                 # recomputes each sample wave instead of
                                 # holding every iterate live — a FULL
                                 # 1080p x 64spp fwd+bwd fits one call
-                                # (2.9s on v5e; without it >4 spp OOMs)
 
 
 
@@ -75,9 +73,9 @@ def _pixel_order(w, h, tile_size):
     """Pixel index arrays + an untile fn mapping lane order -> row-major.
 
     tile_size=0: row-major (identity).  Otherwise tile-major: lanes walk
-    ~ts x ~ts pixel tiles (per-dimension nearest divisors) — tight packet
-    frustums for the Pallas mesh kernels (ops/pallas_bvh.py,
-    ops/pallas_cluster.py) and better locality generally.
+    ~ts x ~ts pixel tiles (per-dimension nearest divisors) — neighbouring
+    lanes trace neighbouring pixels, so a block of the mesh traversal
+    kernel walks similar BVH paths.
     """
     ii, jj = jnp.meshgrid(jnp.arange(h, dtype=jnp.int32),
                           jnp.arange(w, dtype=jnp.int32), indexing='ij')
@@ -244,10 +242,6 @@ class Renderer:
 
     def __init__(self, sc: scn.SceneArrays, cam: cam_mod.Camera,
                  cfg: RenderConfig):
-        # a camera inside a closed mesh must see its back faces — clear
-        # the cluster backface cull there (build_scene cannot know the
-        # camera; see scene.camera_backface_gate)
-        sc = scn.camera_backface_gate(sc, cam.position)
         self.scene = sc
         self.cam = cam
         self.cfg = cfg

@@ -1,7 +1,7 @@
 """Device-side triangle meshes: soup + BVH + per-group materials.
 
-TPU-native counterpart of TriMesh (reference: TriangleMesh.h:115-260) as a
-flax pytree: flat SoA triangle/BVH arrays (built host-side by io/obj.py and
+Counterpart of TriMesh (reference: TriangleMesh.h:115-260) as a pytree
+dataclass: flat SoA triangle/BVH arrays (built host-side by io/obj.py and
 ops/bvh.py), per-group constant material channels (MTL multipliers —
 texture images arrive with models/texture.py), interpolated shading normals
 (reference getMaterial, TriangleMesh.cpp:940-948).
@@ -17,18 +17,18 @@ from typing import Optional
 
 import numpy as np
 import jax.numpy as jnp
-import flax.struct
+from ..utils import struct
 
 from ..io import obj as obj_io
 from ..ops import bvh as bvh_mod
 from ..ops import traverse
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class MeshArrays:
-    # soup/bvh are None on LEAN cluster-tier meshes (the packed cluster
-    # A-matrices + shade_pack carry everything device-side; the reference
-    # similarly keeps ONE triangleSoup copy, TriangleMesh.cpp:813-829)
+    # triangle data: the 'brute' and 'bvh' tiers read the SoA soup, the
+    # 'bvh' tier also the SoA BVH; the 'kernel' tier keeps neither (its
+    # ktris rows hold the same 16 fields, see tri_soup())
     soup: Optional[traverse.TriSoup]
     bvh: Optional[traverse.BVHArrays]
     # shading attributes, in BVH triangle order
@@ -61,48 +61,32 @@ class MeshArrays:
     g_refr: jnp.ndarray      # (G,)
     # per-group texture images (static structure; None entries = constant)
     textures: tuple          # tuple of models.texture.GroupTextures, len G
-    # packet-kernel node arrays (ops/pallas_bvh.PackedBVH tuple) or None
-    packed: tuple
-    # two-level cluster-kernel arrays (ops/pallas_cluster.cluster_arrays)
-    # for the big-mesh tier, or ()
-    clustered: tuple
     # statics
-    obj_row: int = flax.struct.field(pytree_node=False)
-    max_leaf: int = flax.struct.field(pytree_node=False)
-    use_brute: bool = flax.struct.field(pytree_node=False)
-    use_packet: bool = flax.struct.field(pytree_node=False)
-    use_cluster: bool = flax.struct.field(pytree_node=False)
-    n_clusters: int = flax.struct.field(pytree_node=False)
-    cluster_top_max_leaf: int = flax.struct.field(pytree_node=False)
-    interp_normals: bool = flax.struct.field(pytree_node=False)
-    display_edges: bool = flax.struct.field(pytree_node=False, default=False)
+    obj_row: int = struct.field(pytree_node=False)
+    max_leaf: int = struct.field(pytree_node=False)
+    interp_normals: bool = struct.field(pytree_node=False)
+    # intersection tier, chosen once by upload_mesh (see TIERS)
+    tier: str = struct.field(pytree_node=False, default='bvh')
+    # BVH depth (sizes the per-ray stack of the kernel tier)
+    bvh_depth: int = struct.field(pytree_node=False, default=0)
+    # kernel tier: packed node rows, root box and triangle rows
+    # (ops/bvh_kernel.pack_nodes / root_box / pack_tris), else None
+    knodes: Optional[jnp.ndarray] = None     # (M, 16) f32
+    kroot: Optional[jnp.ndarray] = None      # (8,) f32
+    ktris: Optional[jnp.ndarray] = None      # (T, 16) f32
+    # run the kernel tier's kernel in interpret mode (CPU tests only;
+    # set explicitly through upload_mesh, never derived from the backend)
+    kernel_interpret: bool = struct.field(pytree_node=False, default=False)
+    display_edges: bool = struct.field(pytree_node=False, default=False)
     # per-channel texture atlases (models.texture.CHANNELS order; each a
     # ChannelAtlas or None) — built for many-group meshes so material
     # fetch does ONE gather per channel instead of a G-long select chain
     atlases: tuple = ()
     # bilinear texture filtering option (reference is point-sampled)
-    bilinear: bool = flax.struct.field(pytree_node=False, default=False)
-    # cluster-tier backface cull enabled: the mesh is a closed,
-    # consistently oriented 2-manifold (topology.closed_orientation)
-    # with NO transparency / subsurface / alpha-cutout anywhere (group
-    # constants or texture channels), so rays can only originate outside
-    # it and the normal-bound cull in ops/pallas_cluster is EXACT (the
-    # orientation sign is baked into ClusteredMesh.nrm at build).
-    # build_scene additionally clears this for ghost / flipped objects
-    # and when another object's AABB overlaps this mesh's (its surface
-    # could seed ray origins inside); the Renderer clears it when the
-    # camera sits inside the mesh AABB.
-    backface_cull: bool = flax.struct.field(pytree_node=False,
-                                            default=False)
+    bilinear: bool = struct.field(pytree_node=False, default=False)
     # alpha-cutout re-intersection rounds (reference's in-leaf skip is
     # unbounded, TriangleMesh.cpp:1199-1205; each round is one traversal)
-    cutout_rounds: int = flax.struct.field(pytree_node=False, default=4)
-    # cluster tier variant: routed per-lane sweeps (ops/routed_cluster)
-    # vs plain packet two_level_hit.  Measured on v5e (see the routed
-    # module docstring): routed is ~2x SLOWER on coherent primaries and
-    # equal on fully incoherent rays, so the packet path stays default;
-    # the flag remains for future regimes (e.g. sparse SS probes).
-    use_routed: bool = flax.struct.field(pytree_node=False, default=False)
+    cutout_rounds: int = struct.field(pytree_node=False, default=4)
     # MERGED multi-mesh support (the Embree top-level instance-BVH
     # analogue, Geometry.cpp:627-674): a merged mesh holds several
     # source objects' triangles baked to world space under ONE BVH, so a
@@ -110,49 +94,56 @@ class MeshArrays:
     # one per mesh.  group_rows maps each material group to its source
     # object row (per-lane flags/transforms resolve by gather).
     group_rows: Optional[jnp.ndarray] = None     # (G,) int32 or None
-    world_space: bool = flax.struct.field(pytree_node=False, default=False)
+    world_space: bool = struct.field(pytree_node=False, default=False)
     # packed per-triangle shading attributes: the material fetch does ONE
-    # (T, C) row gather instead of ~7 separate per-lane gathers (each
-    # separate (T,3) gather materializes a full lane-padded tile row per
-    # lane on TPU — they dominated the e2e wave's non-sweep time).
+    # (T, C) row gather instead of ~7 separate per-lane gathers.
     # shade_cols maps name -> (start, width) into the packed row; int32
     # columns (group) are bitcast to f32 (gathers move bits, no math).
     shade_pack: Optional[jnp.ndarray] = None     # (T, C) f32
-    shade_cols: tuple = flax.struct.field(pytree_node=False, default=())
-    # SCENE-AXIS sharding (config 5: the 23.7M-tri BVH split across
-    # chips, SURVEY §7 'sharded BVH').  When scene_axis is set the
-    # cluster arrays and shade_pack carry a leading (D,) device axis
-    # (leading (1,) inside shard_map bodies — parallel/scene_shard
-    # localize_scene strips it): each device culls+sweeps ONLY its
-    # cluster partition and the scene combines winners with an
-    # all_gather+argmin over the axis; shading rows are fetched with an
-    # in-range local gather + psum.  tri ids stay GLOBAL BVH positions
-    # (cluster starts ride the packed tail), so partitions compose for
-    # free.  Counterpart of the reference's single top-level Embree
-    # scene over instanced meshes (Geometry.cpp:589-688) at scales one
-    # chip cannot hold.
-    scene_axis: Optional[str] = flax.struct.field(pytree_node=False,
-                                                  default=None)
-    shard_row0: Optional[jnp.ndarray] = None     # (D,) i32 first OWNED
-                                                 # shade_pack row (global)
-    shard_rows: Optional[jnp.ndarray] = None     # (D,) i32 owned row count
-    # triangle count as static metadata (lean meshes carry no soup)
-    n_tris: int = flax.struct.field(pytree_node=False, default=-1)
+    shade_cols: tuple = struct.field(pytree_node=False, default=())
 
     @property
     def num_triangles(self):
-        return self.n_tris if self.n_tris >= 0 else self.soup.ax.shape[0]
+        return (self.ktris if self.soup is None else self.soup.ax).shape[0]
+
+    def tri_soup(self) -> traverse.TriSoup:
+        """The triangle fields as a TriSoup on every tier (the kernel
+        tier's are column views of its ktris rows)."""
+        if self.soup is not None:
+            return self.soup
+        return traverse.TriSoup(*[self.ktris[:, j] for j in range(16)])
+
+    @property
+    def use_brute(self):
+        return self.tier == 'brute'
 
 
-BRUTE_FORCE_MAX_TRIS = 8192   # below this, dense sweep beats traversal on TPU
-PACKET_MAX_TRIS = 8000        # SMEM-resident tier (~1MB scalar memory)
+# intersection tiers: 'kernel' = the per-ray GPU traversal kernel
+# (ops/bvh_kernel.py), 'bvh' = XLA lockstep traversal (traverse.bvh_hit),
+# 'brute' = dense all-pairs sweep (traverse.brute_force_hit)
+TIERS = ('kernel', 'bvh', 'brute')
+BRUTE_FORCE_MAX_TRIS = 8192   # CPU: below this the dense sweep is used
 ATLAS_MIN_GROUPS = 5          # textured groups before the atlas pays off
+
+
+def default_tier(n_tris: int, platform: Optional[str] = None) -> str:
+    """The intersection tier for a mesh on this platform: the GPU gets
+    the traversal kernel at every size; the CPU gets XLA code (dense
+    sweep for small meshes, lockstep BVH above BRUTE_FORCE_MAX_TRIS)."""
+    if platform is None:
+        import jax
+        platform = jax.devices()[0].platform
+    if platform == 'gpu':
+        return 'kernel'
+    if platform == 'cpu':
+        return 'brute' if n_tris <= BRUTE_FORCE_MAX_TRIS else 'bvh'
+    raise ValueError(f'no mesh intersection tier for platform {platform!r}')
 
 
 def upload_mesh(md: obj_io.MeshData, obj_row: int,
                 interp_normals: bool = True,
-                use_brute: Optional[bool] = None,
-                use_cluster: Optional[bool] = None,
+                tier: Optional[str] = None,
+                kernel_interpret: bool = False,
                 load_textures: bool = True,
                 default_ksub=(0.0, 0.0, 0.0),
                 default_transp: bool = False,
@@ -163,26 +154,23 @@ def upload_mesh(md: obj_io.MeshData, obj_row: int,
                 use_atlas: Optional[bool] = None,
                 bilinear: bool = False,
                 cutout_rounds: int = 4,
-                use_routed: bool = False,
                 group_rows=None,
                 world_space: bool = False,
                 group_transp=None,
                 group_refr=None,
                 group_ksub=None,
-                lean: Optional[bool] = None,
-                allow_backface: bool = True,
                 edge_colors=None) -> MeshArrays:
     """Build BVH + device arrays from host MeshData (TriMesh::init tail,
-    TriangleMesh.cpp:784-841)."""
+    TriangleMesh.cpp:784-841).
+
+    tier: one of TIERS, or None for default_tier(T) on this platform.
+    kernel_interpret: run the kernel tier in Pallas interpret mode (lets
+    the CPU tests drive the GPU kernel; never set for a real render)."""
     from ..models import texture as tex_mod
     import os
     tri_verts = md.vertices[md.vtx_idx]                     # (T,3,3)
     fb = bvh_mod.build_bvh(tri_verts)
     order = fb.order
-    # host-side soup first; the device copy uploads only on non-lean
-    # meshes (the LEAN big-mesh tier ships packed clusters + shade_pack
-    # ONLY — the reference likewise keeps one triangleSoup copy,
-    # TriangleMesh.cpp:813-829)
     host_soup = traverse.make_soup(tri_verts[order], device=False)
 
     n_idx = md.n_idx[order]
@@ -277,79 +265,17 @@ def upload_mesh(md: obj_io.MeshData, obj_row: int,
     else:
         atlases = ()
 
-    if use_brute is None:
-        use_brute = len(order) <= BRUTE_FORCE_MAX_TRIS
-
-    # the Pallas packet kernel replaces the brute sweep on TPU for the
-    # SMEM-resident tier (see ops/pallas_bvh.py); CPU keeps the dense path
-    import jax
-    use_packet = (len(order) <= PACKET_MAX_TRIS
-                  and jax.default_backend() == 'tpu')
-    if use_packet:
-        from ..ops import pallas_bvh
-        pk = pallas_bvh.pack_bvh(fb)
-        packed = (pk.lox, pk.loy, pk.loz, pk.hix, pk.hiy, pk.hiz,
-                  pk.na, pk.nb, pk.nleaf)
+    if tier is None:
+        tier = default_tier(len(order))
+    if tier not in TIERS:
+        raise ValueError(f'unknown mesh tier {tier!r}')
+    if tier == 'kernel':
+        from ..ops import bvh_kernel
+        knodes = jnp.asarray(bvh_kernel.pack_nodes(fb))
+        kroot = jnp.asarray(bvh_kernel.root_box(fb))
+        ktris = jnp.asarray(bvh_kernel.pack_tris(host_soup))
     else:
-        packed = ()
-
-    # the two-level cluster kernel is the TPU tier for EVERY mesh size
-    # (round 3): with the hierarchical cull + lean sweep it measures
-    # 22.4M rays/s on 1080p primaries at 2k tris vs 8.9M through the
-    # SMEM packet kernel (and shadows get the cheap any-hit sweep).
-    # CPU keeps the XLA lockstep bvh_hit.  The packet arrays are still
-    # built below (explicit use_cluster=False keeps that tier testable).
-    if use_cluster is None:
-        use_cluster = jax.default_backend() == 'tpu'
-    # backface-cull gate (see MeshArrays.backface_cull): material side —
-    # the mesh must be opaque EVERYWHERE (no transparent/subsurface group
-    # constants, no alpha/transp/refr/ksub texture channels: any of
-    # those lets rays continue inside, where back faces are real hits);
-    # geometric side — closed_orientation's welded directed-edge +
-    # per-shell volume check (also yields the orientation sign baked
-    # into the cluster normal bounds).  PT_NO_BACKFACE=1 disables for
-    # triage/A-B.
-    bf_sign = 0
-    if (use_cluster and allow_backface
-            and os.environ.get('PT_NO_BACKFACE') != '1'):
-        transp_any = (bool(np.any(np.asarray(group_transp)))
-                      if group_transp is not None else bool(default_transp))
-        ksub_any = (bool(np.any(np.asarray(group_ksub) != 0.0))
-                    if group_ksub is not None
-                    else bool(np.any(np.asarray(default_ksub,
-                                                np.float32) != 0.0)))
-        tex_block = any(gt.alpha is not None or gt.transp is not None
-                        or gt.refr is not None or gt.ksub is not None
-                        for gt in textures)
-        if not (transp_any or ksub_any or tex_block):
-            from . import topology
-            bf_sign = topology.closed_orientation(md.vertices, md.vtx_idx)
-    if use_cluster:
-        from ..ops import pallas_cluster
-        cmesh = pallas_cluster.build_clustered(
-            tri_verts, fb=fb, nrm_sign=float(bf_sign if bf_sign else 1))
-        clustered = pallas_cluster.cluster_arrays(cmesh)
-        n_clusters = cmesh.n_clusters
-        cluster_top_max_leaf = cmesh.top_max_leaf
-    else:
-        clustered = ()
-        n_clusters = 0
-        cluster_top_max_leaf = 0
-
-    # LEAN upload (VERDICT r03 #4): a dense-cull cluster-tier mesh never
-    # touches soup/bvh at render time — two_level_hit leaves residual
-    # identically False (no bvh_hit_sparse net), barycentrics ride the
-    # shade_pack 'bary' columns, shading reads shade_pack rows, and the
-    # subsurface reservoir marches through _mesh_closest_hit.  Dropping
-    # the soup (12 (T,) arrays), the BVH and the duplicate per-corner
-    # attribute arrays (all packed into shade_pack below) halves the
-    # office-scale HBM footprint.  PACKET_MAX_TRIS gate: small meshes
-    # keep every tier testable on-device (and cost nothing).
-    if lean is None:
-        lean = (bool(use_cluster) and not use_routed
-                and len(order) > PACKET_MAX_TRIS
-                and 0 < n_clusters <= pallas_cluster.DENSE_CULL_MAX
-                and os.environ.get('PT_NO_LEAN') != '1')
+        knodes = kroot = ktris = None
 
     se = (jnp.asarray(md.show_edges[order]) if display_edges else None)
     if facecolors is not None:
@@ -403,65 +329,27 @@ def upload_mesh(md: obj_io.MeshData, obj_row: int,
         ec_arr, em_arr = edge_colors
         _add('ec', np.asarray(ec_arr, np.float32)[order].reshape(-1, 9))
         _add('em', np.asarray(em_arr, np.float32)[order])
-    if use_cluster:
-        # edge-matrix rows for the per-ray barycentric recompute (the
-        # lean cluster sweep returns (t, tri) winners only): packing them
-        # HERE makes the whole bary+shading fetch ONE row gather — a
-        # gather costs per ROW on TPU (~80ms per 2M-lane gather at 1080p
-        # regardless of width), so a second per-bounce gather for the
-        # bary table alone was as expensive as the whole shading fetch.
-        ov = tri_verts[order].astype(np.float64)
-        av_ = ov[:, 0]
-        uv_ = ov[:, 1] - av_
-        vv_ = ov[:, 2] - av_
-        m11_ = (uv_ * uv_).sum(-1)
-        m12_ = (uv_ * vv_).sum(-1)
-        m22_ = (vv_ * vv_).sum(-1)
-        det_ = m11_ * m22_ - m12_ * m12_
-        inv_ = 1.0 / np.where(det_ != 0, det_, 1.0)
-        _add('bary', np.concatenate(
-            [av_, uv_, vv_, m11_[:, None], m12_[:, None], m22_[:, None],
-             inv_[:, None]], axis=1).astype(np.float32))
     shade_pack = (jnp.asarray(np.concatenate(parts, axis=1))
                   if parts else None)
 
-    if lean:
-        # every render-time consumer reads shade_pack (asserted: the
-        # packed columns cover what this mesh's feature set can touch)
-        packed_names = {nm for nm, _, _ in shade_cols}
-        assert 'bary' in packed_names
-        assert ('n0' in packed_names if interp_normals
-                else 'fn' in packed_names)
-        soup = bvh = None
-        vc0u = vc1u = vc2u = None
-        n0u = n1u = n2u = t0u = t1u = t2u = None
-        uv0u = uv1u = uv2u = None
-        grpu = None
-        se = fc = None
-    else:
-        soup = traverse.TriSoup(*[jnp.asarray(x) for x in host_soup])
-        bvh = traverse.upload_bvh(fb)
-        n0u, n1u, n2u = jnp.asarray(n0), jnp.asarray(n1), jnp.asarray(n2)
-        uv0u, uv1u, uv2u = (jnp.asarray(uv0), jnp.asarray(uv1),
-                            jnp.asarray(uv2))
-        t0u, t1u, t2u = jnp.asarray(t0), jnp.asarray(t1), jnp.asarray(t2)
-        grpu = jnp.asarray(md.group[order], jnp.int32)
-        vc0u, vc1u, vc2u = vc0, vc1, vc2
+    # upload only what the tier reads
+    soup = (None if tier == 'kernel'
+            else traverse.TriSoup(*[jnp.asarray(x) for x in host_soup]))
+    bvh = traverse.upload_bvh(fb) if tier == 'bvh' else None
 
     return MeshArrays(
-        soup=soup, bvh=bvh, packed=packed, use_packet=use_packet,
+        soup=soup, bvh=bvh, tier=tier, bvh_depth=int(fb.depth),
+        knodes=knodes, kroot=kroot, ktris=ktris,
+        kernel_interpret=bool(kernel_interpret),
         atlases=atlases, bilinear=bool(bilinear),
-        cutout_rounds=int(cutout_rounds), use_routed=bool(use_routed),
+        cutout_rounds=int(cutout_rounds),
         show_edges=se, facecolors=fc, display_edges=bool(display_edges),
-        clustered=clustered, use_cluster=bool(use_cluster),
-        n_clusters=int(n_clusters),
-        cluster_top_max_leaf=int(cluster_top_max_leaf),
-        n0=n0u, n1=n1u, n2=n2u,
-        uv0=uv0u, uv1=uv1u, uv2=uv2u,
-        t0=t0u, t1=t1u, t2=t2u,
+        n0=jnp.asarray(n0), n1=jnp.asarray(n1), n2=jnp.asarray(n2),
+        uv0=jnp.asarray(uv0), uv1=jnp.asarray(uv1), uv2=jnp.asarray(uv2),
+        t0=jnp.asarray(t0), t1=jnp.asarray(t1), t2=jnp.asarray(t2),
         textures=tuple(textures),
-        group=grpu,
-        vc0=vc0u, vc1=vc1u, vc2=vc2u,
+        group=jnp.asarray(md.group[order], jnp.int32),
+        vc0=vc0, vc1=vc1, vc2=vc2,
         g_kd=jnp.asarray(g_kd), g_ks=jnp.asarray(g_ks),
         g_ne=jnp.asarray(g_ne),
         g_ksub=(jnp.asarray(group_ksub, jnp.float32)
@@ -481,9 +369,7 @@ def upload_mesh(md: obj_io.MeshData, obj_row: int,
         world_space=bool(world_space),
         shade_pack=shade_pack, shade_cols=tuple(shade_cols),
         obj_row=int(obj_row), max_leaf=int(fb.max_leaf),
-        use_brute=bool(use_brute), interp_normals=bool(interp_normals),
-        n_tris=len(order),
-        backface_cull=bool(bf_sign != 0),
+        interp_normals=bool(interp_normals),
     )
 
 
@@ -516,9 +402,8 @@ def merge_mesh_entries(entries):
 
     The reference reaches the same end through Embree instancing — each
     TriMesh is a sub-scene instanced with its 3x4 transform into one top
-    scene (Geometry.cpp:255-277, 627-674).  On TPU an instance hierarchy
-    would put a per-lane transform gather inside the traversal inner
-    loop, so the transforms are baked into the soup instead and the
+    scene (Geometry.cpp:255-277, 627-674).  An instance hierarchy would
+    put a per-lane transform gather inside the traversal inner loop, so the transforms are baked into the soup instead and the
     per-object state (flags, rows) is recovered per GROUP at shading.
     Keyframed objects re-bake on every build_scene(frame=...) exactly
     like the reference's per-frame build_matrix."""

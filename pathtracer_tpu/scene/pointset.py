@@ -1,6 +1,6 @@
 """Point sets: XYZ import, kNN normal/radius estimation, disk splats.
 
-TPU-native counterpart of PointSet (reference: PointSet.h:38-239,
+Counterpart of PointSet (reference: PointSet.h:38-239,
 PointSet.cpp:124-244): points render as normal-oriented disks; normals are
 estimated by 10-NN PCA when absent (nanoflann + CImg symmetric_eigen in
 the reference -> scipy cKDTree + numpy eigh here); splat radius is
@@ -15,7 +15,8 @@ from __future__ import annotations
 import numpy as np
 import jax
 import jax.numpy as jnp
-import flax.struct
+from ..core import vec
+from ..utils import struct
 
 BIG_T = np.float32(1e30)
 
@@ -71,7 +72,7 @@ def estimate_normals(points: np.ndarray, k: int = 10):
     return normals, radii
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class PointSetArrays:
     """Device-side point set bound to an object-table row."""
 
@@ -79,20 +80,20 @@ class PointSetArrays:
     nx: jnp.ndarray; ny: jnp.ndarray; nz: jnp.ndarray       # unit normals
     radius: jnp.ndarray                                     # (P,)
     colors: jnp.ndarray                                     # (P,3)
-    # particle-cluster acceleration (TPU form of the reference's uniform
+    # particle-cluster acceleration (wavefront form of the reference's uniform
     # accel grid, fluid.cpp:36-62): Morton-sorted particles grouped into
     # CLUSTER_P-sized clusters with radius-inflated AABBs; None = brute
     c_lox: jnp.ndarray = None; c_loy: jnp.ndarray = None
     c_loz: jnp.ndarray = None; c_hix: jnp.ndarray = None
     c_hiy: jnp.ndarray = None; c_hiz: jnp.ndarray = None
-    obj_row: int = flax.struct.field(pytree_node=False, default=0)
-    n_clusters: int = flax.struct.field(pytree_node=False, default=0)
-    display_edges: bool = flax.struct.field(pytree_node=False, default=False)
+    obj_row: int = struct.field(pytree_node=False, default=0)
+    n_clusters: int = struct.field(pytree_node=False, default=0)
+    display_edges: bool = struct.field(pytree_node=False, default=False)
     # True: points are SPHERES (fluid particle rendering, fluid.cpp:175-262)
     # False: normal-oriented disks (PointSet splats)
-    as_spheres: bool = flax.struct.field(pytree_node=False, default=False)
+    as_spheres: bool = struct.field(pytree_node=False, default=False)
     # transparent fluid: union-exit semantics for interior rays
-    transparent: bool = flax.struct.field(pytree_node=False, default=False)
+    transparent: bool = struct.field(pytree_node=False, default=False)
 
     @property
     def num_points(self):
@@ -137,18 +138,17 @@ def make_pointset(path_or_points, cols=None, obj_row=0, normals=None,
 #
 # The reference accelerates fluid-particle intersection with a per-frame
 # uniform grid + per-ray DDA walk over voxel particle lists (fluid.cpp:
-# 36-62 build, 65-171 transparent walk, 264-336 opaque).  Per-lane DDA
-# with dynamic voxel lists is the worst shape for a TPU (per-lane dynamic
-# indexing measures ~0.02M rays/s).  The TPU-native equivalent reuses the
-# mesh tier's two-phase cluster decomposition (ops/pallas_cluster.py):
+# 36-62 build, 65-171 transparent walk, 264-336 opaque).  The wavefront
+# form here is a two-phase cluster decomposition in plain XLA:
 # Morton-sorted particles grouped into CLUSTER_P-sized clusters with
-# radius-inflated AABBs; phase 1 = the shared dense XLA slab cull emitting
-# near-first sorted slots per 1024-ray packet; phase 2 = a while_loop over
+# radius-inflated AABBs; phase 1 = a dense slab cull (_dense_cull) emitting
+# near-first sorted slots per BLOCK-ray packet; phase 2 = a while_loop over
 # only the emitted slots, each one (BLOCK, CLUSTER_P) vectorized sphere
 # rectangle sliced from the sorted arrays, with a sound early break on the
 # sorted entry keys.  Overflowed packets (count > MAXC_P) reroute their
 # unproven lanes to the brute sweep — no hit is ever dropped.
 
+BLOCK = 512          # rays per packet
 CLUSTER_P = 256      # particles per cluster (dynamic_slice granule)
 MAXC_P = 64          # culled cluster slots per packet
 CLUSTERED_MIN = 8192   # below this the brute sweep wins
@@ -197,15 +197,79 @@ def _cluster_particles(p, radii, normals, colors):
         hi.astype(np.float32)
 
 
+def _pad_rays(org, dirn, tmax, target_n):
+    """Extend ray arrays with dead rays (tmax=-1 -> culled everywhere)."""
+    pad = target_n - org.shape[0]
+    org = jnp.concatenate([org, jnp.full((pad, 3), 1e6, org.dtype)])
+    dirn = jnp.concatenate([dirn, jnp.broadcast_to(
+        jnp.asarray([1.0, 0.0, 0.0], dirn.dtype), (pad, 3))])
+    tmax = jnp.concatenate([tmax, jnp.full((pad,), -1.0, tmax.dtype)])
+    return org, dirn, tmax
+
+
+def _emit_from_keys(keys_c, live_c, maxc):
+    """Near-first top-k emission from per-(packet, cluster) keys: the
+    maxc smallest keys per packet row with their cluster ids (-1 pads),
+    plus the live-cluster count per packet."""
+    count = jnp.sum(live_c, axis=1, dtype=jnp.int32)[:, None]
+    c = keys_c.shape[1]
+    k = min(maxc, c)
+    iota = jnp.broadcast_to(jnp.arange(c, dtype=jnp.int32), keys_c.shape)
+    keys_s, idx_s = jax.lax.sort((keys_c, iota), dimension=-1, num_keys=1)
+    keys_sel, idx = keys_s[:, :k], idx_s[:, :k]
+    ids = jnp.where(keys_sel < BIG_T, idx, -1)
+    if k < maxc:
+        nb_ = ids.shape[0]
+        ids = jnp.concatenate(
+            [ids, jnp.full((nb_, maxc - k), -1, jnp.int32)], axis=1)
+        keys_sel = jnp.concatenate(
+            [keys_sel, jnp.full((nb_, maxc - k), BIG_T)], axis=1)
+    return ids, count, keys_sel
+
+
+def _dense_cull(cb, org, dirn, tmax, maxc: int):
+    """Every packet x every cluster slab rectangle: per packet, the
+    near-first list of clusters some lane's ray enters before its tmax."""
+    lox, loy, loz, hix, hiy, hiz = cb
+    n = org.shape[0]
+    nb = n // BLOCK
+
+    def per_packet(xs):
+        o, d, tm = xs                   # (BLOCK,3) (BLOCK,3) (BLOCK,)
+        ivx = 1.0 / d[:, 0:1]
+        ivy = 1.0 / d[:, 1:2]
+        ivz = 1.0 / d[:, 2:3]
+        t1 = (lox[None, :] - o[:, 0:1]) * ivx
+        t2 = (hix[None, :] - o[:, 0:1]) * ivx
+        tmin = jnp.minimum(t1, t2)
+        tmx = jnp.maximum(t1, t2)
+        t1 = (loy[None, :] - o[:, 1:2]) * ivy
+        t2 = (hiy[None, :] - o[:, 1:2]) * ivy
+        tmin = jnp.maximum(tmin, jnp.minimum(t1, t2))
+        tmx = jnp.minimum(tmx, jnp.maximum(t1, t2))
+        t1 = (loz[None, :] - o[:, 2:3]) * ivz
+        t2 = (hiz[None, :] - o[:, 2:3]) * ivz
+        tmin = jnp.maximum(tmin, jnp.minimum(t1, t2))
+        tmx = jnp.minimum(tmx, jnp.maximum(t1, t2))
+        entry = jnp.maximum(tmin, 0.0)
+        live = (tmx >= entry) & (tmin < tm[:, None])       # (BLOCK, C)
+        key = jnp.min(jnp.where(live, entry, BIG_T), axis=0)
+        return key, vec.any_true(live, axis=0)
+
+    keys_c, live_c = jax.lax.map(
+        per_packet, (org.reshape(nb, BLOCK, 3), dirn.reshape(nb, BLOCK, 3),
+                     tmax.reshape(nb, BLOCK)))             # (nb, C)
+    return _emit_from_keys(jnp.where(live_c, keys_c, BIG_T), live_c, maxc)
+
+
 def _cull_spheres(ps: PointSetArrays, org, dirn, tmax):
     """Shared dense cull over particle-cluster AABBs (pads rays to the
     packet size internally).  Returns (ids, count, keys, padded rays)."""
-    from ..ops import pallas_cluster as pc
     n = org.shape[0]
-    pad = (-n) % pc.BLOCK
+    pad = (-n) % BLOCK
     if pad:
-        org, dirn, tmax, _ = pc._pad_rays(org, dirn, tmax, None, n + pad)
-    ids, count, keys = pc._dense_cull(
+        org, dirn, tmax = _pad_rays(org, dirn, tmax, n + pad)
+    ids, count, keys = _dense_cull(
         (ps.c_lox, ps.c_loy, ps.c_loz, ps.c_hix, ps.c_hiy, ps.c_hiz),
         org, dirn, tmax, maxc=MAXC_P)
     return ids, count, keys, org, dirn, tmax
@@ -214,7 +278,6 @@ def _cull_spheres(ps: PointSetArrays, org, dirn, tmax):
 @jax.jit
 def _clustered_entry_exec(px, py, pz, pr, ids, keys, org, dirn, tmax):
     """Per-packet closest sphere-entry sweep over culled slots."""
-    from ..ops.pallas_cluster import BLOCK
     nb = org.shape[0] // BLOCK
 
     def per_packet(xs):
@@ -259,7 +322,7 @@ def _clustered_entry_exec(px, py, pz, pr, ids, keys, org, dirn, tmax):
             cond, body, (0, tm, jnp.full((BLOCK,), -1, jnp.int32)))
         return bt, bi
 
-    from ..ops.pallas_cluster import BLOCK as B
+    B = BLOCK
     bt, bi = jax.lax.map(per_packet, (ids, keys, org.reshape(nb, B, 3),
                                       dirn.reshape(nb, B, 3),
                                       tmax.reshape(nb, B)))
@@ -287,13 +350,12 @@ def clustered_sphere_sweep(ps: PointSetArrays, org, dirn, t_max):
         win = res & (fb_t < bt)
         return jnp.where(win, fb_t, bt), jnp.where(win, fb_i, bi)
 
-    return jax.lax.cond(jnp.any(res), fallback, lambda a: a, (bt, bi))
+    return jax.lax.cond(vec.any_true(res), fallback, lambda a: a, (bt, bi))
 
 
 @jax.jit
 def _clustered_union_exec(px, py, pz, pr, ids, keys, org, dirn):
     """Fixed-point union-exit over culled slots (see sphere_union_exit)."""
-    from ..ops.pallas_cluster import BLOCK
     nb = org.shape[0] // BLOCK
     eps = 1e-4
 
@@ -327,7 +389,7 @@ def _clustered_union_exec(px, py, pz, pr, ids, keys, org, dirn):
                 t1 = (-b - sq) / a
                 t2 = (-b + sq) / a
                 ok = (delta >= 0) & (t2 > 0) & (cid >= 0)
-                ins = ins | jnp.any(ok & (t1 < 0), axis=-1)
+                ins = ins | vec.any_true(ok & (t1 < 0), axis=-1)
                 straddle = ok & (t1 <= ex[:, None] + eps) \
                     & (t2 > ex[:, None])
                 t2m = jnp.where(straddle, t2, -1.0)
@@ -352,7 +414,7 @@ def _clustered_union_exec(px, py, pz, pr, ids, keys, org, dirn):
         def outer_body(c):
             it, _, ex, ix, ins = c
             ex2, ix2, ins2 = slot_pass(ex, ix, ins)
-            return it + 1, jnp.any(ex2 > ex), ex2, ix2, ins2
+            return it + 1, vec.any_true(ex2 > ex), ex2, ix2, ins2
 
         _, _, ex, ix, ins = jax.lax.while_loop(
             outer_cond, outer_body,
@@ -360,7 +422,7 @@ def _clustered_union_exec(px, py, pz, pr, ids, keys, org, dirn):
              jnp.full((BLOCK,), -1, jnp.int32), jnp.zeros((BLOCK,), bool)))
         return ex, ix, ins
 
-    from ..ops.pallas_cluster import BLOCK as B
+    B = BLOCK
     ex, ix, ins = jax.lax.map(per_packet, (ids, keys,
                                            org.reshape(nb, B, 3),
                                            dirn.reshape(nb, B, 3)))
@@ -387,7 +449,7 @@ def clustered_union_exit(ps: PointSetArrays, org, dirn):
         return (jnp.where(res, f_ex, ex), jnp.where(res, f_ix, ix),
                 jnp.where(res, f_ins, ins))
 
-    return jax.lax.cond(jnp.any(res), fallback, lambda a: a, (ex, ix, ins))
+    return jax.lax.cond(vec.any_true(res), fallback, lambda a: a, (ex, ix, ins))
 
 
 def sphere_sweep(ps: PointSetArrays, org, dirn, t_max, chunk: int = 4096):
@@ -426,7 +488,7 @@ def sphere_union_exit(ps: PointSetArrays, org, dirn, chunk: int = 4096,
                       iters: int = 12):
     """Exit point of the union of spheres containing the ray origin.
 
-    TPU-native form of the reference's transparent-fluid interval walk
+    Wavefront form of the reference's transparent-fluid interval walk
     (fluid.cpp:65-171: collect per-sphere (t1,t2), sort, walk merged
     intervals): instead of a per-lane sort, iterate a monotone fixed point —
     extend the current exit t by any sphere whose interval straddles it.
@@ -461,7 +523,7 @@ def sphere_union_exit(ps: PointSetArrays, org, dirn, chunk: int = 4096,
             t2 = (-b + sq) / a
             ok = (delta >= 0) & (t2 > 0)
             if it == 0:
-                inside = inside | jnp.any(ok & (t1 < 0), axis=-1)
+                inside = inside | vec.any_true(ok & (t1 < 0), axis=-1)
             # spheres whose interval straddles the current exit extend it
             straddle = ok & (t1 <= (changed_exit[:, None] + eps)) \
                 & (t2 > changed_exit[:, None])

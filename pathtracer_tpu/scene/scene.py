@@ -1,6 +1,6 @@
 """Scene as a pytree of SoA arrays + dense vectorized intersection.
 
-TPU-native counterpart of the reference Scene/Object layer (reference:
+JAX counterpart of the reference Scene/Object layer (reference:
 Geometry.h:240-728 Object, :849-1103 Sphere, :1127-1217 Plane,
 :1238-1400 + Geometry.cpp:589-744 Scene intersection dispatch).
 
@@ -10,10 +10,8 @@ object in one fused vectorized sweep ((N rays) x (O objects) candidate-t
 matrix, masked argmin).  O is small (analytic objects); triangle meshes are
 handled separately by the BVH kernels (ops/).
 
-TPU layout rule (learned the hard way): the wavefront dimension N must stay
-the minor/vectorized axis and no rank-3 (N, small, small) temporaries may be
-materialized — XLA pads trailing (3,4)-ish dims to (8,128) tiles, a 40-170x
-HBM blowup at 1080p.  All transform math below is therefore written
+Layout: the wavefront dimension N stays the leading axis and no rank-3
+(N, small, small) temporaries are materialized; transform math is written
 per-coordinate on (N,) / (N,O) planes.
 
 Object slots follow the reference convention (Raytracer.cpp:1238-1274):
@@ -32,8 +30,9 @@ import dataclasses
 from typing import Any, NamedTuple, Optional
 
 import numpy as np
+import jax
 import jax.numpy as jnp
-import flax.struct
+from ..utils import struct
 
 from ..core import vec
 
@@ -46,11 +45,11 @@ POINTSET = 3   # row is transform/flags holder; geometry in .pointsets
 BIG_T = np.float32(1e30)   # numpy: no backend init at import
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class SceneArrays:
     """Device-side scene: SoA over O analytic objects + global light/env.
 
-    A flax struct (pytree dataclass): array fields are traced leaves,
+    A struct dataclass (utils/struct.py): array fields are traced leaves,
     `identity_transform` is static metadata (it selects the cheap transform
     path at trace time).  Use `.replace(...)` for functional updates.
     """
@@ -74,7 +73,7 @@ class SceneArrays:
     inv_trans: jnp.ndarray     # (O,12)
     rot: jnp.ndarray           # (O,9)
     # static: all transforms identity rotation/scale (translation only)?
-    identity_transform: bool = flax.struct.field(pytree_node=False)
+    identity_transform: bool = struct.field(pytree_node=False)
     # light / environment
     light_intensity: jnp.ndarray   # scalar: s.intensite_lumiere
     light_scale: jnp.ndarray       # scalar: light keyframe scale
@@ -90,18 +89,18 @@ class SceneArrays:
     fog_absorption_decay: jnp.ndarray = None
     phase_aniso: jnp.ndarray = None        # Schlick k
     ground_level: jnp.ndarray = None       # objects[2] translation y
-    fog_enabled: bool = flax.struct.field(pytree_node=False, default=False)
-    fog_type: int = flax.struct.field(pytree_node=False, default=0)
-    fog_phase_type: int = flax.struct.field(pytree_node=False, default=0)
+    fog_enabled: bool = struct.field(pytree_node=False, default=False)
+    fog_type: int = struct.field(pytree_node=False, default=0)
+    fog_phase_type: int = struct.field(pytree_node=False, default=0)
     # subsurface scattering compiled in? (any object with Ksub > 0)
-    ss_enabled: bool = flax.struct.field(pytree_node=False, default=False)
+    ss_enabled: bool = struct.field(pytree_node=False, default=False)
     # per-object: is the subsurface reservoir probe supported on this row?
     # False only for mesh/pointset/yarn rows without a reservoir path —
     # the integrator masks the SS entry RR there so the estimator stays
     # unbiased (None = all rows supported)
     ss_obj_ok: jnp.ndarray = None          # (O,) bool
     # ghost compositing objects present?
-    ghost_enabled: bool = flax.struct.field(pytree_node=False, default=False)
+    ghost_enabled: bool = struct.field(pytree_node=False, default=False)
     # measured BRDFs: per-object selector (0 = Phong, k+1 = table k) + tables
     brdf_type: jnp.ndarray = None          # (O,) int32
     measured_brdfs: tuple = ()
@@ -148,12 +147,10 @@ class Hit(NamedTuple):
     ghost: jnp.ndarray      # (N,) bool
     brdf_type: jnp.ndarray  # (N,) int32: 0=Phong, k+1=measured table k
     # surface-locality key for the wavefront's secondary-ray sort: mesh
-    # hits carry their CLUSTER id (the sweep kernel's working-set
-    # granularity), analytic hits their object row.  Sorting bounce rays
-    # by (direction octant, lkey) keeps packets on one surface patch —
-    # measured 12% off the bounce-2 cluster sweep (a finer 27-bit Morton
-    # sub-key measured SLOWER in round 2: too fine, destroyed the
-    # direction sub-locality packets also need).
+    # hits carry a triangle-range bucket (BVH order, at most 8192 buckets
+    # per mesh), analytic hits their object row.  Sorting bounce rays by
+    # (direction octant, lkey) keeps neighbouring lanes on one surface
+    # patch.
     lkey: jnp.ndarray = None   # (N,) int32 in [0, 8191]
 
 
@@ -243,8 +240,8 @@ def _envmap_ke(sc: SceneArrays, nx, ny, nz):
 def _sel_table(table, obj_id, num_objects):
     """Row lookup by per-lane object id as a SELECT CHAIN, not a gather.
 
-    O is tiny (analytic objects), so O-1 vectorized selects beat an XLA
-    gather on TPU by a wide margin (gathers serialize per element)."""
+    O is tiny (analytic objects), so O-1 vectorized selects stand in for
+    a per-lane gather."""
     out = jnp.broadcast_to(table[0], obj_id.shape + table.shape[1:]
                            if table.ndim > 1 else obj_id.shape)
     for o in range(1, num_objects):
@@ -268,7 +265,7 @@ def intersect(sc: SceneArrays, origins, dirs, avoid_ghosts=False) -> Hit:
 
     origins/dirs: (N,3).  Fully vectorized: one (N,O) candidate matrix,
     masked argmin, then select-chain extraction — no per-object control
-    flow, no rank-3 temporaries, no gathers (TPU rules, module docstring).
+    flow, no rank-3 temporaries, no gathers (module docstring).
     """
     t_all, (lox, loy, loz), (ldx, ldy, ldz) = _candidate_ts(
         sc, origins, dirs, avoid_ghosts)
@@ -415,8 +412,8 @@ def _merge_yarn_hit(sc: SceneArrays, ya, origins, dirs, cur: Hit,
         n_w = n_l
     else:
         tr = sc.trans[row].reshape(3, 4)
-        p_w = p_l @ tr[:, :3].T + tr[:, 3]
-        n_w = vec.normalize(n_l @ sc.rot[row].reshape(3, 3).T)
+        p_w = _mm(p_l, tr[:, :3].T) + tr[:, 3]
+        n_w = vec.normalize(_mm(n_l, sc.rot[row].reshape(3, 3).T))
 
     def sel(new, old):
         m = win[..., None] if new.ndim > win.ndim else win
@@ -501,8 +498,8 @@ def _merge_pointset_hit(sc: SceneArrays, ps, origins, dirs, cur: Hit,
         n_w = n_l
     else:
         tr = sc.trans[row].reshape(3, 4)
-        p_w = p_l @ tr[:, :3].T + tr[:, 3]
-        n_w = vec.normalize(n_l @ sc.rot[row].reshape(3, 3).T)
+        p_w = _mm(p_l, tr[:, :3].T) + tr[:, 3]
+        n_w = vec.normalize(_mm(n_l, sc.rot[row].reshape(3, 3).T))
 
     def sel(new, old):
         m = win[..., None] if new.ndim > win.ndim else win
@@ -527,6 +524,13 @@ def _merge_pointset_hit(sc: SceneArrays, ps, origins, dirs, cur: Hit,
     )
 
 
+def _mm(x, m):
+    """(N,3) x (3,3) transform product at full float32 precision (a GPU
+    would otherwise run it in TF32 and move hit points enough to flip
+    visibility against the CPU reference)."""
+    return jnp.matmul(x, m, precision=jax.lax.Precision.HIGHEST)
+
+
 def _local_ray_row(sc: SceneArrays, row: int, origins, dirs):
     """Map rays into one object row's space (static row)."""
     m = sc.inv_trans[row]                     # (12,)
@@ -534,53 +538,32 @@ def _local_ray_row(sc: SceneArrays, row: int, origins, dirs):
         org_l = origins + jnp.stack([m[3], m[7], m[11]])
         return org_l, dirs
     rotm = m.reshape(3, 4)
-    org_l = origins @ rotm[:, :3].T + rotm[:, 3]
-    dir_l = dirs @ rotm[:, :3].T
+    org_l = _mm(origins, rotm[:, :3].T) + rotm[:, 3]
+    dir_l = _mm(dirs, rotm[:, :3].T)
     return org_l, dir_l
 
 
 def _shade_fetch(mesh, tri):
-    """Per-triangle shading attributes as ONE packed row gather.
-
-    Separate per-table gathers (n0[tri], uv0[tri], group[tri], ...) each
-    materialize a lane-padded tile row per lane on TPU; packing them into
-    one (T, C) matrix at upload makes the whole fetch a single gather
-    (the fusions dominated the e2e wave's non-sweep device time).
-    Returns {} when the mesh predates the pack (merged checkpoints).
-
-    Scene-axis meshes hold a contiguous ROW SLICE of the pack: the owner
-    shard gathers, everyone else contributes zeros, and a psum over the
-    axis assembles the full row (each global tri has exactly one owner)."""
+    """Per-triangle shading attributes as ONE packed row gather (one
+    (T, C) row per lane instead of one gather per attribute table).
+    Returns {} when the mesh has no pack."""
     if getattr(mesh, 'shade_pack', None) is None:
         return {}
-    ax = getattr(mesh, 'scene_axis', None)
-    if ax is None:
-        rows = mesh.shade_pack[tri]
-    else:
-        import jax
-        row0 = mesh.shard_row0
-        mine = (tri >= row0) & (tri < row0 + mesh.shard_rows)
-        local = jnp.clip(tri - row0, 0, mesh.shade_pack.shape[0] - 1)
-        rows = jnp.where(mine[:, None], mesh.shade_pack[local], 0.0)
-        rows = jax.lax.psum(rows, ax)
+    rows = mesh.shade_pack[tri]
     return {name: rows[:, s:s + w] for name, s, w in mesh.shade_cols}
 
 
-def _bary_from_pack(mesh, org_l, dir_l, t, tri, sf=None):
-    """Winner barycentrics from the shade_pack 'bary' columns (the lean
-    cluster tier returns (t, tri) only; see ops/pallas_cluster
-    recompute_bary).  Edge-matrix formula of traverse._tri_test_block —
-    bit-matched to the brute oracle.  Pass an existing _shade_fetch
-    result to reuse its gather."""
-    if sf is None:
-        sf = _shade_fetch(mesh, jnp.maximum(tri, 0))
-    bb = sf['bary']                  # a(3) u(3) v(3) m11 m12 m22 inv
+def _kernel_bary(mesh, org_l, dir_l, t, tri):
+    """Winner barycentrics from the kernel tier's triangle rows (the
+    kernel returns (t, tri) only): one ktris row gather and the
+    edge-matrix formula of traverse._tri_test_block."""
+    bb = mesh.ktris[jnp.maximum(tri, 0)]   # TriSoup field order
     p_b = org_l + t[:, None] * dir_l
     pxv = p_b - bb[:, 0:3]
     b11 = jnp.sum(pxv * bb[:, 3:6], axis=-1)
     b21 = jnp.sum(pxv * bb[:, 6:9], axis=-1)
-    be = (b11 * bb[:, 11] - b21 * bb[:, 10]) * bb[:, 12]
-    ga = (b21 * bb[:, 9] - b11 * bb[:, 10]) * bb[:, 12]
+    be = (b11 * bb[:, 14] - b21 * bb[:, 13]) * bb[:, 15]
+    ga = (b21 * bb[:, 12] - b11 * bb[:, 13]) * bb[:, 15]
     hitl = tri >= 0
     be = jnp.where(hitl, be, 0.0)
     ga = jnp.where(hitl, ga, 0.0)
@@ -592,9 +575,6 @@ def _mesh_uv(mesh, tri, al, be, ga, sf=None):
     if sf is not None and 'uv0' in sf:
         uv = (sf['uv0'] * al[:, None] + sf['uv1'] * be[:, None]
               + sf['uv2'] * ga[:, None])
-    elif mesh.uv0 is None:
-        # LEAN untextured mesh: no uv columns packed, nothing samples them
-        uv = jnp.zeros((tri.shape[0], 2), jnp.float32)
     else:
         uv = (mesh.uv0[tri] * al[:, None] + mesh.uv1[tri] * be[:, None]
               + mesh.uv2[tri] * ga[:, None])
@@ -635,8 +615,7 @@ def _mesh_alpha(mesh, mh):
 
 
 def _mesh_closest_hit(mesh, org_l, dir_l, t_max, cutout_rounds=None,
-                      t_min=None, need_bary: bool = True,
-                      backface=None):
+                      t_min=None):
     """Closest hit honoring alpha cutouts: re-intersect past texels with
     alpha < 0.5, up to cutout_rounds skips (the reference skips them inside
     the leaf loop, TriangleMesh.cpp:1199-1205; the wavefront equivalent is
@@ -653,95 +632,18 @@ def _mesh_closest_hit(mesh, org_l, dir_l, t_max, cutout_rounds=None,
     if cutout_rounds is None:
         cutout_rounds = getattr(mesh, 'cutout_rounds', 4)
     has_alpha = any(gt.alpha is not None for gt in mesh.textures)
-    # alpha-cutout rounds need real barycentrics per round; otherwise
-    # callers that fold the recompute into their own shading gather
-    # (scene._merge_mesh_hit) or never read them (shadow path) pass
-    # need_bary=False — a per-ray gather is ~80ms per 2M lanes on TPU
-    with_bary = has_alpha or need_bary
 
     def one_hit(t_min):
-        if mesh.use_cluster:
-            # big-mesh tier: two-level cluster traversal (interpret mode
-            # keeps the path testable off-TPU)
-            import jax
-            from ..ops import pallas_cluster
-            cmesh = pallas_cluster.cluster_from_arrays(
-                mesh.clustered, mesh.n_clusters, mesh.cluster_top_max_leaf)
-            import os
-            rr = int(os.environ.get('PT_REFINE_ROUNDS', '1'))
-            dense = mesh.n_clusters <= pallas_cluster.DENSE_CULL_MAX
-            routed = getattr(mesh, 'use_routed', False)
-            # barycentrics come from the shade_pack 'bary' columns
-            # when packed (one row gather; no soup dependency), else
-            # from the soup inside the kernel wrapper
-            has_pack = any(nm == 'bary' for nm, _, _ in mesh.shade_cols)
-            wb = with_bary and not has_pack
-            if routed:
-                from ..ops import routed_cluster
-                t, tri, al, be, res = routed_cluster.routed_hit(
-                    cmesh, org_l, dir_l, t_max, tmin=t_min,
-                    interpret=jax.default_backend() != 'tpu',
-                    refine_rounds=rr, return_residual=True,
-                    soup=mesh.soup if wb else None, with_bary=wb)
-            else:
-                # dense tier (every practical mesh): the exhaustive
-                # windowed sweep inside two_level_hit guarantees res is
-                # identically False — no external fallback needed.
-                # mesh.soup feeds the per-ray barycentric recompute
-                # (cluster order == BVH order for real triangles)
-                t, tri, al, be, res = pallas_cluster.two_level_hit(
-                    cmesh, org_l, dir_l, t_max, tmin=t_min,
-                    interpret=jax.default_backend() != 'tpu',
-                    refine_rounds=rr, return_residual=True,
-                    soup=mesh.soup if wb else None, with_bary=wb,
-                    backface_cull=bool(
-                        mesh.backface_cull if backface is None
-                        else backface))
-
-            # scene axis (config 5): this device swept only its cluster
-            # partition (root_exit_clamp on the LOCAL partition bounds IS
-            # the AABB routing — rays missing the partition turn dead);
-            # the global closest hit is an all_gather+argmin over the
-            # axis.  tri ids are global BVH positions, so they compose.
-            # (Scene::intersection's single top-level combine,
-            # Geometry.cpp:589-688.)
-            ax = getattr(mesh, 'scene_axis', None)
-            if ax is not None:
-                assert has_pack, 'sharded meshes need the bary pack'
-                t_all = jax.lax.all_gather(t, ax)      # (D, N)
-                tri_all = jax.lax.all_gather(tri, ax)
-                jbest = jnp.argmin(t_all, axis=0)
-                lane = jnp.arange(t.shape[0])
-                t = t_all[jbest, lane]
-                tri = tri_all[jbest, lane]
-
-            # overflow soundness net (SMEM-cull tier / routed path only):
-            # lanes the refinement could not prove exact re-traverse the
-            # lockstep BVH with their current best t.  MUST be the
-            # sparse/chunked variant — a full-wavefront-width bvh_hit on a
-            # multi-million-node BVH faults the TPU worker AND runs at
-            # ~3k rays/s on incoherent lanes (round-2 root cause of the
-            # cluster end-to-end crash; see bvh_hit_sparse docstring).
-            # PT_NO_RESIDUAL_FALLBACK=1 skips the net entirely (device-
-            # fault triage escape hatch; hits may be silently dropped).
-            if ((routed or not dense)
-                    and os.environ.get('PT_NO_RESIDUAL_FALLBACK') != '1'):
-                t, tri, al, be = traverse.bvh_hit_sparse(
-                    mesh.bvh, mesh.soup, org_l, dir_l, res,
-                    max_leaf=mesh.max_leaf, t=t, tri=tri, alpha=al,
-                    beta=be, t_min=t_min)
-            if with_bary and has_pack:
-                al, be, _ga = _bary_from_pack(mesh, org_l, dir_l, t, tri)
+        if mesh.tier == 'kernel':
+            from ..ops import bvh_kernel
+            t, tri = bvh_kernel.kernel_hit(
+                mesh.kroot, mesh.knodes, mesh.ktris, org_l, dir_l, t_max,
+                t_min, max_leaf=mesh.max_leaf, depth=mesh.bvh_depth,
+                interpret=mesh.kernel_interpret)
+            al, be, ga = _kernel_bary(mesh, org_l, dir_l, t, tri)
             return traverse.MeshHit(t=t, tri=tri, alpha=al, beta=be,
-                                    gamma=1.0 - al - be)
-        if mesh.use_packet:
-            from ..ops import pallas_bvh
-            t, tri, al, be = pallas_bvh.packet_hit(
-                mesh.packed, mesh.soup, org_l, dir_l, t_max,
-                max_leaf=mesh.max_leaf, tmin=t_min)
-            return traverse.MeshHit(t=t, tri=tri, alpha=al, beta=be,
-                                    gamma=1.0 - al - be)
-        if mesh.use_brute:
+                                    gamma=ga)
+        if mesh.tier == 'brute':
             return traverse.brute_force_hit(mesh.soup, org_l, dir_l,
                                             t_max=t_max, t_min=t_min)
         return traverse.bvh_hit(mesh.bvh, mesh.soup, org_l, dir_l,
@@ -791,9 +693,7 @@ def _merge_mesh_hit(sc: SceneArrays, mesh, origins, dirs, cur: Hit,
         org_l, dir_l = origins, dirs
     else:
         org_l, dir_l = _local_ray_row(sc, row, origins, dirs)
-    has_bary_col = any(n == 'bary' for n, _, _ in mesh.shade_cols)
-    mh = _mesh_closest_hit(mesh, org_l, dir_l, cur.t,
-                           need_bary=not has_bary_col)
+    mh = _mesh_closest_hit(mesh, org_l, dir_l, cur.t)
 
     tri = jnp.maximum(mh.tri, 0)
     sf = _shade_fetch(mesh, tri)
@@ -812,17 +712,7 @@ def _merge_mesh_hit(sc: SceneArrays, mesh, origins, dirs, cur: Hit,
     win = mh.t < cur.t
     if avoid_ghosts:
         win = win & ~_obj(sc.ghost)
-    if has_bary_col and 'bary' in sf and not any(
-            gt.alpha is not None for gt in mesh.textures):
-        # lean cluster tier: (t, tri) winners only — recompute the
-        # barycentrics from the SAME shading row gather (a separate
-        # per-ray bary gather costs as much as the whole shading fetch)
-        from ..ops import traverse
-        al, be, ga = _bary_from_pack(mesh, org_l, dir_l, mh.t, mh.tri,
-                                     sf=sf)
-        al, be, ga = traverse.bary_cleanup(al, be, ga)
-    else:
-        al, be, ga = traverse_bary_cleanup(mh)
+    al, be, ga = traverse_bary_cleanup(mh)
 
     # shading normal (TriangleMesh.cpp:940-948)
     if mesh.interp_normals:
@@ -835,8 +725,8 @@ def _merge_mesh_hit(sc: SceneArrays, mesh, origins, dirs, cur: Hit,
     elif 'fn' in sf:
         n_l = sf['fn']
     else:
-        n_l = jnp.stack([mesh.soup.nx[tri], mesh.soup.ny[tri],
-                         mesh.soup.nz[tri]], axis=-1)
+        soup = mesh.tri_soup()
+        n_l = jnp.stack([soup.nx[tri], soup.ny[tri], soup.nz[tri]], axis=-1)
     n_l = vec.normalize(n_l)
 
     u, v = _mesh_uv(mesh, tri, al, be, ga, sf)
@@ -888,8 +778,8 @@ def _merge_mesh_hit(sc: SceneArrays, mesh, origins, dirs, cur: Hit,
         n_w = n_l
     else:
         tr = sc.trans[row].reshape(3, 4)
-        p_w = p_l @ tr[:, :3].T + tr[:, 3]
-        n_w = vec.normalize(n_l @ sc.rot[row].reshape(3, 3).T)
+        p_w = _mm(p_l, tr[:, :3].T) + tr[:, 3]
+        n_w = vec.normalize(_mm(n_l, sc.rot[row].reshape(3, 3).T))
 
     # material: group constants x optional texture images (queryMaterial,
     # Geometry.h:399-445 — image value multiplied by the channel multiplier)
@@ -959,8 +849,7 @@ def _merge_mesh_hit(sc: SceneArrays, mesh, origins, dirs, cur: Hit,
                 rval = samp(gt.refr, u, v)[..., 0] * mesh.g_refr[g]
                 refr = jnp.where(grp == g, rval, refr)
     if 'vc0' in sf or mesh.vc0 is not None:
-        # vertex-color override (TriangleMesh.cpp:975-977); sf-first —
-        # LEAN meshes carry the colors only in the shade_pack columns
+        # vertex-color override (TriangleMesh.cpp:975-977)
         vc0 = sf['vc0'] if 'vc0' in sf else mesh.vc0[tri]
         vc1 = sf['vc1'] if 'vc1' in sf else mesh.vc1[tri]
         vc2 = sf['vc2'] if 'vc2' in sf else mesh.vc2[tri]
@@ -1012,13 +901,12 @@ def _merge_mesh_hit(sc: SceneArrays, mesh, origins, dirs, cur: Hit,
         miroir=jnp.where(win, _obj(sc.miroir), cur.miroir),
         ghost=jnp.where(win, _obj(sc.ghost), cur.ghost),
         brdf_type=jnp.where(win, _obj(sc.brdf_type), cur.brdf_type),
-        # surface-locality sort key: the winner's CLUSTER id (the sweep
-        # working set; clusters are contiguous tris_c chunks of the BVH
-        # order), clamped to the 13-bit key budget
+        # surface-locality sort key: the winner's position in BVH order,
+        # bucketed to the 13-bit key budget (nearby triangles share a
+        # bucket, so sorted bounce rays start on nearby subtrees)
         lkey=jnp.where(
             win,
-            jnp.minimum(tri // max(1, -(-mesh.num_triangles
-                                        // max(mesh.n_clusters, 1))),
+            jnp.minimum(tri // max(1, -(-mesh.num_triangles // 8192)),
                         8191).astype(jnp.int32),
             cur.lkey),
     )
@@ -1059,11 +947,10 @@ def _mesh_reservoir_march(mesh, org_m, dir_m, tmax, u,
     """Uniform random intersection with a BIG mesh along [0, tmax).
 
     Instead of sweeping all T triangles (the dense two-pass, unaffordable
-    at cluster scale), march the closest-hit traversal with a rising
+    for big meshes), march the closest-hit traversal with a rising
     strict t floor, recording every crossing into max_cross slots — a
     closed surface crosses a short subsurface probe segment only a few
-    times, and the traversal itself is the fast tiered one (packet /
-    cluster kernels).  Then count-then-pick with the single uniform like
+    times, and each step is one traversal of the mesh's own tier.  Then count-then-pick with the single uniform like
     the dense path (same distribution as the reference's sequential
     reservoir, TriangleMesh.cpp:1321-1428).
 
@@ -1072,23 +959,19 @@ def _mesh_reservoir_march(mesh, org_m, dir_m, tmax, u,
     failure; 16+ crossings within a probe segment is pathological).
     Returns (found, t, tri, alpha, beta, gamma).
     """
-    import jax
     n = org_m.shape[0]
     K = max_cross
     big = jnp.broadcast_to(tmax, (n,))
 
     def cond(c):
         i, _, active, *_ = c
-        return jnp.any(active) & (i < K)
+        return vec.any_true(active) & (i < K)
 
     def body(c):
         i, t_floor, active, ts, tris, als, bes = c
-        # the march counts crossings in BOTH directions (subsurface
-        # probes travel inside the surface) — never backface-cull here.
-        # (Gating already guarantees ksub-carrying meshes have the flag
-        # off; this is defense in depth.)
-        mh = _mesh_closest_hit(mesh, org_m, dir_m, big, t_min=t_floor,
-                               backface=False)
+        # the march counts crossings in both directions (subsurface
+        # probes travel inside the surface)
+        mh = _mesh_closest_hit(mesh, org_m, dir_m, big, t_min=t_floor)
         found = active & (mh.t < big)
         row = lambda a, v: jax.lax.dynamic_update_slice(
             a, v[None, :], (i, 0))
@@ -1131,7 +1014,7 @@ def _mesh_reservoir_march(mesh, org_m, dir_m, tmax, u,
 def reservoir_same_object(sc: SceneArrays, origins, dirs, tmax, obj_id, u):
     """Uniformly-random intersection with the SAME object along [0, tmax].
 
-    TPU-native counterpart of Scene::get_random_intersection restricted to
+    JAX counterpart of Scene::get_random_intersection restricted to
     one object (reference: Geometry.cpp:339-472 with sphere_id != -1;
     per-object reservoir variants Geometry.h:994-1094, :1159-1183,
     TriangleMesh.cpp:1321-1428).  The reference's sequential reservoir
@@ -1176,7 +1059,7 @@ def reservoir_same_object(sc: SceneArrays, origins, dirs, tmax, obj_id, u):
         return jnp.sum(jnp.where(row_sel, m, 0.0), axis=1)
 
     def gatherb(m):
-        return jnp.any(row_sel & m, axis=1)
+        return vec.any_true(row_sel & m, axis=1)
 
     tmax_ = tmax
     c1_t = gather(jnp.where(is_sphere, s_t1, p_t))
@@ -1204,8 +1087,8 @@ def reservoir_same_object(sc: SceneArrays, origins, dirs, tmax, obj_id, u):
     n_l = jnp.where(sc.flip_normals[obj_id, None], -n_l, n_l)
 
     # meshes: uniform pick among triangle hits in range.  The dense
-    # two-pass sweep covers every mesh small enough for it (brute AND
-    # packet tiers); bigger (cluster-tier) meshes use the crossing march.
+    # two-pass sweep covers every mesh up to MESH_RESERVOIR_MAX_TRIS,
+    # whatever its tier; bigger meshes use the crossing march.
     overflow = jnp.zeros((n,), bool)
     for mesh in sc.meshes:
         if mesh.num_triangles > MESH_RESERVOIR_MAX_TRIS:
@@ -1220,7 +1103,7 @@ def reservoir_same_object(sc: SceneArrays, origins, dirs, tmax, obj_id, u):
                 n_m = (sfm['n0'] * a3[:, None] + sfm['n1'] * b3[:, None]
                        + sfm['n2'] * g3[:, None])
             elif 'fn' in sfm:
-                n_m = sfm['fn']        # LEAN face-normal mesh
+                n_m = sfm['fn']        # face-normal mesh
             else:
                 n_m = (mesh.n0[mtri] * a3[:, None]
                        + mesh.n1[mtri] * b3[:, None]
@@ -1236,10 +1119,11 @@ def reservoir_same_object(sc: SceneArrays, origins, dirs, tmax, obj_id, u):
         org_m, dir_m = _local_ray_row(sc, row, origins, dirs)
         mcount = jnp.zeros((n,), jnp.int32)
         chunk = 2048
-        t_total = mesh.soup.ax.shape[0]
+        soup = mesh.tri_soup()
+        t_total = mesh.num_triangles
         for start in range(0, t_total, chunk):
             sl = slice(start, min(start + chunk, t_total))
-            tt, _, _, _ = traverse._tri_test_block(mesh.soup, sl, org_m, dir_m)
+            tt, _, _, _ = traverse._tri_test_block(soup, sl, org_m, dir_m)
             mcount = mcount + jnp.sum(
                 (tt >= 0.0) & (tt < tmax_[:, None]), axis=-1).astype(jnp.int32)
         lane_on_mesh = obj_id == row
@@ -1250,19 +1134,19 @@ def reservoir_same_object(sc: SceneArrays, origins, dirs, tmax, obj_id, u):
         mtri = jnp.zeros((n,), jnp.int32)
         for start in range(0, t_total, chunk):
             sl = slice(start, min(start + chunk, t_total))
-            tt, _, _, _ = traverse._tri_test_block(mesh.soup, sl, org_m, dir_m)
+            tt, _, _, _ = traverse._tri_test_block(soup, sl, org_m, dir_m)
             valid = (tt >= 0.0) & (tt < tmax_[:, None])
             idx_in = jnp.cumsum(valid.astype(jnp.int32), axis=-1) - 1 + runner[:, None]
             want = valid & (idx_in == target[:, None])
-            anyw = jnp.any(want, axis=-1)
-            j = jnp.argmax(want, axis=-1)
+            anyw = vec.any_true(want, axis=-1)
+            j = jnp.argmax(want.astype(jnp.int32), axis=-1)
             mt = jnp.where(anyw, jnp.take_along_axis(tt, j[:, None], -1)[:, 0],
                            mt)
             mtri = jnp.where(anyw, j.astype(jnp.int32) + start, mtri)
             runner = runner + jnp.sum(valid.astype(jnp.int32), axis=-1)
         m_found = lane_on_mesh & (mcount > 0)
         # interpolated normal at the mesh exit
-        t3, a3, b3, g3 = traverse._tri_test_lane(mesh.soup, mtri, org_m, dir_m)
+        t3, a3, b3, g3 = traverse._tri_test_lane(soup, mtri, org_m, dir_m)
         del t3
         n_m = (mesh.n0[mtri] * a3[:, None] + mesh.n1[mtri] * b3[:, None]
                + mesh.n2[mtri] * g3[:, None])
@@ -1300,7 +1184,7 @@ def intersect_shadow(sc: SceneArrays, origins, dirs, dist_light,
     from ..ops import traverse
 
     t_all, _, _ = _candidate_ts(sc, origins, dirs, avoid_ghosts)
-    blocked = jnp.any(t_all < (dist_light[:, None] * 0.999), axis=-1)
+    blocked = vec.any_true(t_all < (dist_light[:, None] * 0.999), axis=-1)
     limit = dist_light * 0.999
     for mesh in sc.meshes:
         if mesh.world_space:
@@ -1308,37 +1192,24 @@ def intersect_shadow(sc: SceneArrays, origins, dirs, dist_light,
         else:
             org_l, dir_l = _local_ray_row(sc, mesh.obj_row, origins, dirs)
         has_alpha = any(gt.alpha is not None for gt in mesh.textures)
-        if mesh.use_cluster and not has_alpha:
-            # any-hit sweep: no winner extraction, per-lane first-hit
-            # early-out (pallas_cluster.two_level_any).  Alpha meshes
-            # stay on the closest-hit path below — cutout texels must
-            # not occlude (TriangleMesh.cpp:1299-1305).
-            from ..ops import pallas_cluster
-            import jax as _jax
-            cmesh = pallas_cluster.cluster_from_arrays(
-                mesh.clustered, mesh.n_clusters, mesh.cluster_top_max_leaf)
-            mb = pallas_cluster.two_level_any(
-                cmesh, org_l, dir_l, limit,
-                interpret=_jax.default_backend() != 'tpu',
-                backface_cull=bool(mesh.backface_cull))
-            # scene axis: occlusion is an OR over partitions
-            ax = getattr(mesh, 'scene_axis', None)
-            if ax is not None:
-                mb = _jax.lax.psum(mb.astype(jnp.int32), ax) > 0
-        elif has_alpha or mesh.use_packet or mesh.use_cluster:
-            # alpha-cutout texels must not occlude (TriangleMesh.cpp:1299-1305);
-            # the packet/cluster kernels also route through the closest-hit
-            # path.  Bounding t_max at the light distance is sound (hits
-            # beyond it never occlude) and lets the cluster cull emit far
-            # fewer slots + fire the early break: t is transform-invariant
-            # because _local_ray_row keeps dir_l unnormalized (the same
-            # convention _merge_mesh_hit's cur.t pruning relies on).
-            # occlusion only needs t (alpha meshes force their own
-            # barycentrics internally for the cutout rounds)
-            mh = _mesh_closest_hit(mesh, org_l, dir_l, limit,
-                                   need_bary=False)
+        if mesh.tier == 'kernel' and not has_alpha:
+            # any-hit traversal: a lane retires at its first hit below the
+            # light distance.  Alpha meshes take the closest-hit path
+            # below — cutout texels must not occlude
+            # (TriangleMesh.cpp:1299-1305).
+            from ..ops import bvh_kernel
+            _, tri = bvh_kernel.kernel_hit(
+                mesh.kroot, mesh.knodes, mesh.ktris, org_l, dir_l, limit,
+                max_leaf=mesh.max_leaf, depth=mesh.bvh_depth, any_hit=True,
+                interpret=mesh.kernel_interpret)
+            mb = tri >= 0
+        elif has_alpha:
+            # t_max bounded at the light distance (hits beyond it never
+            # occlude); t is transform-invariant because _local_ray_row
+            # keeps dir_l unnormalized.  Occlusion only needs t.
+            mh = _mesh_closest_hit(mesh, org_l, dir_l, limit)
             mb = mh.t < limit
-        elif mesh.use_brute:
+        elif mesh.tier == 'brute':
             mb = traverse.brute_force_any(mesh.soup, org_l, dir_l, limit)
         else:
             mh = traverse.bvh_hit(mesh.bvh, mesh.soup, org_l, dir_l,
@@ -1520,123 +1391,6 @@ def load_background(path: str, gamma: float = 2.2) -> np.ndarray:
     return (np.power(img, gamma) * 196964.699).astype(np.float32)
 
 
-def _mesh_world_aabb(mesh, trans):
-    """World-space AABB of a cluster-tier mesh from its cluster bounds
-    (works for lean meshes that no longer carry a soup)."""
-    lo = np.stack([np.asarray(mesh.clustered[10 + k]).min()
-                   for k in range(3)]).astype(np.float64)
-    hi = np.stack([np.asarray(mesh.clustered[13 + k]).max()
-                   for k in range(3)]).astype(np.float64)
-    if not mesh.world_space:
-        tr = np.asarray(trans[mesh.obj_row], np.float64)
-        corners = np.stack(np.meshgrid(*zip(lo, hi),
-                                       indexing='ij'), -1).reshape(-1, 3)
-        w = corners @ tr[:, :3].T + tr[:, 3]
-        lo, hi = w.min(0), w.max(0)
-    return lo, hi
-
-
-def _object_overlaps_aabb(o, tr, lo, hi) -> bool:
-    """Conservative: could any point of object o's surface lie inside the
-    (inflated) box [lo, hi]?  Unknown shapes answer True."""
-    tr = np.asarray(tr, np.float64)
-    if o.obj_type == SPHERE:
-        c = tr[:, :3] @ np.asarray(o.center, np.float64) + tr[:, 3]
-        r = float(o.radius) * abs(float(o.scale))
-        near = np.maximum(lo, np.minimum(c, hi))
-        return float(np.sum((near - c) ** 2)) <= r * r
-    if o.obj_type == PLANE:
-        p = tr[:, :3] @ np.asarray(o.center, np.float64) + tr[:, 3]
-        n = tr[:, :3] @ np.asarray(o.normal, np.float64)
-        nn = np.linalg.norm(n)
-        if nn == 0.0:
-            return True
-        n = n / nn
-        ctr = (lo + hi) * 0.5
-        ext = (hi - lo) * 0.5
-        return abs(float(np.dot(n, ctr - p))) <= float(np.dot(np.abs(n),
-                                                              ext))
-    if o.obj_type == MESH and o.mesh_data is not None:
-        v = np.asarray(o.mesh_data.vertices, np.float64)
-        vlo, vhi = v.min(0), v.max(0)
-        corners = np.stack(np.meshgrid(*zip(vlo, vhi),
-                                       indexing='ij'), -1).reshape(-1, 3)
-        w = corners @ tr[:, :3].T + tr[:, 3]
-        return bool(np.all(w.max(0) >= lo) and np.all(w.min(0) <= hi))
-    return True      # pointsets / yarns / unknown: conservative
-
-
-def _gate_backface_overlap(mesh, objects, trans):
-    """Clear MeshArrays.backface_cull when another object could seed ray
-    origins INSIDE this closed mesh.
-
-    Reachability argument (why mere geometric overlap is fine): every
-    path origin is the camera (renderer gate), a surface hit point, a
-    ghost pass-through point, or a fog scatter point along a traced
-    segment — and no traced segment can ever REACH the interior of a
-    closed opaque mesh, because any segment from outside crosses the
-    shell and the closest hit terminates there first (with the cull on,
-    the crossing is front-facing, so it is still found — no
-    circularity).  Surfaces of other objects hidden inside the mesh are
-    therefore unreachable and harmless; e.g. a floor plane the mesh
-    dips below stays cullable.  The ONE transport that teleports
-    through space is the subsurface disk-probe relocation
-    (integrator._subsurface_event): an SS-capable object whose surface
-    dips inside this mesh could relocate a path to an interior exit
-    point — so only ss-capable overlapping objects clear the flag.
-    (Epsilon caveat: origins are offset ~0.01 outward; points within
-    that epsilon of a contact seam can leak, the same acne class every
-    eps-offset tracer has at touching geometry.)"""
-    if not getattr(mesh, 'backface_cull', False):
-        return mesh
-    lo, hi = _mesh_world_aabb(mesh, trans)
-    pad = 1e-3 + 1e-4 * float(np.linalg.norm(hi - lo))
-    lo, hi = lo - pad, hi + pad
-    if mesh.group_rows is not None:
-        own = {int(r) for r in np.unique(np.asarray(mesh.group_rows))}
-    else:
-        own = {int(mesh.obj_row)}
-    for j, o in enumerate(objects):
-        if j in own or j in (0, 1):
-            continue
-        ss_capable = bool(np.any(np.broadcast_to(
-            np.asarray(o.ksub, np.float32), (3,)) != 0.0))
-        if not ss_capable and isinstance(getattr(o, 'textures', None),
-                                         (dict, list)):
-            tex = o.textures if isinstance(o.textures, list) else [o.textures]
-            ss_capable = any(t and 'ksub' in t for t in tex)
-        if ss_capable and _object_overlaps_aabb(o, trans[j], lo, hi):
-            return mesh.replace(backface_cull=False)
-    return mesh
-
-
-def camera_backface_gate(sc: 'SceneArrays', cam_pos) -> 'SceneArrays':
-    """Clear backface_cull on meshes whose AABB contains the camera —
-    primary rays would then originate inside the closed surface, where
-    back faces are the true visible geometry.  Called by the Renderer
-    once the camera is known (build_scene cannot see it)."""
-    p = np.asarray(cam_pos, np.float64)
-    out, changed = [], False
-    for m in sc.meshes:
-        if getattr(m, 'backface_cull', False) and m.use_cluster:
-            lo = np.stack([np.asarray(m.clustered[10 + k]).min()
-                           for k in range(3)]).astype(np.float64)
-            hi = np.stack([np.asarray(m.clustered[13 + k]).max()
-                           for k in range(3)]).astype(np.float64)
-            pad = 1e-3 + 1e-4 * float(np.linalg.norm(hi - lo))
-            if m.world_space:
-                pl = p
-            else:
-                inv = np.asarray(sc.inv_trans[m.obj_row],
-                                 np.float64).reshape(3, 4)
-                pl = inv[:, :3] @ p + inv[:, 3]
-            if bool(np.all(pl >= lo - pad) and np.all(pl <= hi + pad)):
-                m = m.replace(backface_cull=False)
-                changed = True
-        out.append(m)
-    return sc.replace(meshes=tuple(out)) if changed else sc
-
-
 def build_scene(objects, light_intensity, envmap_intensity=1.0, envmap=None,
                 light_scale=1.0, fog=None, background=None,
                 frame=None, merge_meshes=None) -> SceneArrays:
@@ -1724,11 +1478,7 @@ def build_scene(objects, light_intensity, envmap_intensity=1.0, envmap=None,
                              texture_overrides=o.textures,
                              use_atlas=o.use_atlas,
                              bilinear=bool(o.bilinear),
-                             cutout_rounds=int(o.cutout_rounds),
-                             # ghosts pass rays through (origins end up
-                             # inside); flipped normals mark surfaces
-                             # meant to be seen from inside
-                             allow_backface=not (o.ghost or o.flip_normals))
+                             cutout_rounds=int(o.cutout_rounds))
         for i, o in mesh_items if i not in merged_rows)
 
     if merged_rows:
@@ -1742,20 +1492,7 @@ def build_scene(objects, light_intensity, envmap_intensity=1.0, envmap=None,
             group_ksub=gdef['ksub'], texture_overrides=tex_ov,
             bilinear=any(o.bilinear for _, o in mesh_items),
             cutout_rounds=max(int(o.cutout_rounds)
-                              for _, o in mesh_items),
-            allow_backface=not any(o.ghost or o.flip_normals
-                                   for o, _, _, _ in entries)),)
-
-    # backface-cull scene gate: another object's surface inside this
-    # closed mesh would seed bounce/shadow ray origins INSIDE it, where
-    # back faces are the true visible geometry — conservatively disable
-    # whenever any other object's world AABB overlaps the mesh's.
-    # Rows 0/1 (light sphere, env dome) are exempt: rays never
-    # ORIGINATE on the light or the dome, and occlusion of an
-    # interior light by the closed surface stays exact (the shadow ray
-    # enters through a front face first).
-    meshes = tuple(_gate_backface_overlap(m, objects, trans)
-                   for m in meshes)
+                              for _, o in mesh_items)),)
 
     # analytic-object texture channels (sphere/plane UV sampling)
     from ..models import texture as tex_mod

@@ -1,6 +1,6 @@
 """Yarns: polylines rendered as finite-cylinder tubes.
 
-TPU-native counterpart of Yarns (reference: TriangleMesh.h:265-309 — .yarn
+JAX counterpart of Yarns (reference: TriangleMesh.h:265-309 — .yarn
 polylines scaled x50, one Cylinder(r=0.1) per segment, own BVH) and the
 finite-cylinder intersection (reference: Geometry.h:731-846).
 
@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import numpy as np
 import jax.numpy as jnp
-import flax.struct
+from ..utils import struct
 
 BIG_T = np.float32(1e30)
 
@@ -43,13 +43,13 @@ def load_yarn(path: str):
             np.asarray(seg_b, np.float32).reshape(-1, 3))
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class YarnArrays:
     ax: jnp.ndarray; ay: jnp.ndarray; az: jnp.ndarray    # segment start (S,)
     ux: jnp.ndarray; uy: jnp.ndarray; uz: jnp.ndarray    # unit axis
     length: jnp.ndarray                                  # (S,)
     radius: jnp.ndarray                                  # (S,)
-    obj_row: int = flax.struct.field(pytree_node=False)
+    obj_row: int = struct.field(pytree_node=False)
 
     @property
     def num_segments(self):

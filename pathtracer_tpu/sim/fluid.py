@@ -1,4 +1,4 @@
-"""MAC-grid fluid simulator — the embedded fluid subsystem, TPU-native.
+"""MAC-grid fluid simulator — the embedded fluid subsystem.
 
 Counterpart of the reference Fluid (reference: fluid.h:91-997): staggered
 MAC velocities sized (N+1)*N*N, solid-cell rasterization from the scene,
@@ -8,7 +8,7 @@ RK4 particle advection, and per-frame particle snapshots.
 
 The reference is OpenMP loops over cells (fluid.h:394-913); here every step
 is a fused vectorized grid operation under jit, and the CG loop is a
-lax.while_loop — the classic JAX/TPU formulation of this exact workload.
+lax.while_loop.
 Rendering: particles become a sphere set swept like the other primitive
 sets (the reference's uniform-grid DDA over sphere unions, fluid.cpp:36-262,
 arrives with the Pallas kernels).
@@ -23,24 +23,24 @@ from typing import NamedTuple
 import numpy as np
 import jax
 import jax.numpy as jnp
-import flax.struct
+from ..utils import struct
 
 AIR, FLUID, SOLID = 0, 1, 2
 GRAVITY = 9.81
 
 
-@flax.struct.dataclass
+@struct.dataclass
 class FluidConfig:
-    lo: tuple = flax.struct.field(pytree_node=False)       # extent min
-    hi: tuple = flax.struct.field(pytree_node=False)
-    nx: int = flax.struct.field(pytree_node=False, default=32)
-    ny: int = flax.struct.field(pytree_node=False, default=32)
-    nz: int = flax.struct.field(pytree_node=False, default=32)
-    dt: float = flax.struct.field(pytree_node=False, default=0.02)
-    nsubsteps: int = flax.struct.field(pytree_node=False, default=1)
-    rho: float = flax.struct.field(pytree_node=False, default=1.0)
-    cg_iters: int = flax.struct.field(pytree_node=False, default=400)
-    cg_tol: float = flax.struct.field(pytree_node=False, default=1e-5)
+    lo: tuple = struct.field(pytree_node=False)       # extent min
+    hi: tuple = struct.field(pytree_node=False)
+    nx: int = struct.field(pytree_node=False, default=32)
+    ny: int = struct.field(pytree_node=False, default=32)
+    nz: int = struct.field(pytree_node=False, default=32)
+    dt: float = struct.field(pytree_node=False, default=0.02)
+    nsubsteps: int = struct.field(pytree_node=False, default=1)
+    rho: float = struct.field(pytree_node=False, default=1.0)
+    cg_iters: int = struct.field(pytree_node=False, default=400)
+    cg_tol: float = struct.field(pytree_node=False, default=1e-5)
 
     @property
     def dx(self):
@@ -220,8 +220,7 @@ def pressure_solve(cfg: FluidConfig, st: FluidState):
     Returns (pressure, residual_norm): the final ||r||_2 is reported so
     callers can SEE when the cfg.cg_iters cap bit before cfg.cg_tol was
     reached (the reference logs solver state, fluid.h:903-905; a silent
-    cap would violate the no-silent-caps standard the cluster tier
-    holds).  test_fluid.test_pressure_projection asserts convergence."""
+    cap would hide a wrong answer).  test_fluid.test_pressure_projection asserts convergence."""
     ct = st.celltypes
     fluid = (ct == FLUID)
     rhs = jnp.where(fluid, -_divergence(cfg, st)
@@ -415,11 +414,6 @@ def cells_inside_object(cfg: FluidConfig, objects, index: int, seed=0):
 
     iso = scn.build_scene([objects[0], objects[1], objects[index]],
                           1.0)
-    # the double-cast launches rays FROM INSIDE the shape — the cluster
-    # tier's backface cull (exact only for outside origins) must be OFF
-    # for these queries even when the mesh qualifies for it
-    iso = iso.replace(meshes=tuple(
-        m.replace(backface_cull=False) for m in iso.meshes))
     row = 2
     centers = _cell_centers(cfg).reshape(-1, 3)
     n = centers.shape[0]

@@ -59,9 +59,8 @@ def sphere_mesh(n_lat: int, n_lon: int, radius: float = 1.0,
         rng = np.random.default_rng(seed)
         # sin(LAT) envelope: the displacement vanishes at the poles so
         # every pole-ring vertex lands on the SAME point — the sphere is
-        # genuinely watertight (the backface-cull gate welds duplicate
-        # positions and checks directed-edge closure; a pole ring whose
-        # radius varied with LON left real cracks there)
+        # genuinely watertight (a pole ring whose radius varied with LON
+        # left real cracks there)
         env = np.sin(LAT)
         env[0, :] = 0.0; env[-1, :] = 0.0   # exact zero at the poles
         for _ in range(6):

@@ -4,10 +4,10 @@ Self-supervised-by-spp: procedurally sampled analytic scenes rendered
 at 4 spp (noisy input + albedo/normal aux) and 128 spp (target) by the
 SAME integrator, then a kernel-predicting CNN (render/denoise_net.py)
 learns to map one to the other on random crops.  This is the OIDN-slot
-model (reference: Raytracer.cpp:1721-1746) trained end-to-end on TPU —
-the renderer produces its own supervision, no external data.
+model (reference: Raytracer.cpp:1721-1746) trained end to end on the
+accelerator — the renderer produces its own supervision, no external data.
 
-Run on the chip:  timeout 3000 python scripts/train_denoiser.py
+Run on the GPU:  timeout 3000 python scripts/train_denoiser.py
 Writes pathtracer_tpu/render/denoiser_weights.npz when the trained
 model beats the noisy input by >=2x MSE on a held-out scene.
 """

@@ -10,7 +10,7 @@ multi-host film would materialize locally, `host_shard_rows`) and
 rebuilds the global image with `jax.make_array_from_process_local_data`.
 
 The reference never scaled past one box (OpenMP rows, Raytracer.cpp);
-this is the TPU-native replacement's smallest end-to-end proof.
+this is the multi-host replacement's smallest end-to-end proof.
 """
 
 import os

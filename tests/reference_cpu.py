@@ -2,7 +2,7 @@
 
 This mirrors the *reference C++ algorithm* (nbonneel/pathtracer
 Raytracer.cpp:196-664 getColor, Vector.h:792-825 generateDirection) path by
-path, drawing randomness from the same keyed PCG32 streams as the TPU
+path, drawing randomness from the same keyed PCG32 streams as the JAX
 wavefront renderer.  It is the ground truth for the BASELINE north-star
 "forward image must match the reference CPU render (allclose at equal sample
 sequences)": the thread-scheduling-dependent engine assignment of the C++
@@ -12,7 +12,7 @@ Scope: analytic scene (spheres + planes), Phong/Lambert materials, mirror,
 Fresnel transparency, NEE to the spherical light, envmap dome, fog
 (uniform/exponential, all three phase functions, the documented
 importance-weighted estimator deviation mirrored on both sides) and
-subsurface scattering (disk probe + axis MIS), matching the TPU
+subsurface scattering (disk probe + axis MIS), matching the JAX
 integrator's canonical RNG draw order throughout.
 """
 

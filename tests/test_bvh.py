@@ -1,8 +1,11 @@
 """BVH build + traversal vs brute-force on random meshes (SURVEY §4)."""
 
+import re
+
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 
 from pathtracer_tpu.ops import bvh as bvh_mod
 from pathtracer_tpu.ops import traverse
@@ -88,73 +91,74 @@ def test_degenerate_and_axis_aligned_rays():
                                rtol=1e-5)
 
 
-def test_bvh_hit_sparse_matches_full():
-    """Sparse chunked fallback == full traversal on active lanes, identity
-    on inactive lanes (the cluster residual net; chunk < n exercises the
-    multi-chunk + pad path)."""
-    tri = _random_mesh(400, seed=5)
+@pytest.mark.parametrize('t,chunk,k,width', [
+    (1, 2048, 1, 1), (300, 2048, 1, 300), (2048, 2048, 1, 2048),
+    (2049, 2048, 2, 1025), (5000, 2048, 3, 1667), (700, 64, 11, 64),
+])
+def test_soup_chunks_pad_less_than_one_per_chunk(t, chunk, k, width):
+    soup = traverse.make_soup(_random_mesh(t, seed=t))
+    ch = traverse._soup_chunks(soup, chunk)
+    assert ch.ax.shape == (k, width) and k * width - t < k
+    np.testing.assert_array_equal(np.asarray(ch.ax).reshape(-1)[:t],
+                                  np.asarray(soup.ax))
+    assert np.all(np.asarray(ch.nx).reshape(-1)[t:] == 0.0)
+
+
+@pytest.mark.parametrize('chunk', [1, 7, 64, 333, 2048])
+def test_brute_force_independent_of_chunking(chunk):
+    """Same winners, t and barycentrics for every chunk width (ties go to
+    the lowest triangle index); padding triangles never hit."""
+    soup = traverse.make_soup(_random_mesh(333, seed=11))
+    rng = np.random.default_rng(12)
+    org = rng.uniform(-6, 6, (120, 3)).astype(np.float32)
+    d = rng.uniform(-3, 3, (120, 3)).astype(np.float32) - org
+    org = jnp.asarray(org)
+    d = jnp.asarray(d / np.linalg.norm(d, axis=1, keepdims=True))
+    ref = traverse.brute_force_hit(soup, org, d, chunk=333)
+    got = traverse.brute_force_hit(soup, org, d, chunk=chunk)
+    assert (np.asarray(ref.tri) >= 0).sum() > 15
+    for a, b in zip(got, ref):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    lim = jnp.full((120,), 4.0)
+    np.testing.assert_array_equal(
+        np.asarray(traverse.brute_force_any(soup, org, d, lim, chunk=chunk)),
+        np.asarray(ref.t) < 4.0)
+
+
+def _bool_reductions(lowered_text):
+    """StableHLO reduce ops over more than one boolean (i1) element (a
+    reduction over size-1 dims, as take_along_axis's bounds check makes,
+    folds away)."""
+    out = []
+    for ln in lowered_text.splitlines():
+        m = re.search(r'stablehlo\.reduce.*dimensions = \[([0-9, ]*)\] : '
+                      r'\(tensor<([0-9x]*)xi1>', ln)
+        if m:
+            shape = [int(v) for v in m.group(2).split('x')]
+            dims = [int(v) for v in m.group(1).split(',')]
+            if np.prod([shape[k] for k in dims]) > 1:
+                out.append(ln)
+    return out
+
+
+@pytest.mark.parametrize('fn', ['bvh_hit', 'brute_force_hit',
+                                'brute_force_any'])
+def test_no_boolean_reductions_in_mesh_intersection(fn):
+    """XLA's GPU compiler sends boolean reductions to a Triton emitter
+    that compiled one wavefront-wide reduction for minutes; the mesh
+    intersection programs reduce ints and floats only."""
+    tri = _random_mesh(50, seed=3)
     fb = bvh_mod.build_bvh(tri)
     soup = traverse.make_soup(tri[fb.order])
     bvh = traverse.upload_bvh(fb)
-    org, d = _random_rays(301, seed=7)
-    n = 301
-
-    rng = np.random.default_rng(9)
-    active = jnp.asarray(rng.random(n) < 0.3)
-
-    # running best: garbage on active lanes, sentinel elsewhere
-    t0 = jnp.full((n,), traverse.BIG_T)
-    tri0 = jnp.full((n,), -1, jnp.int32)
-    al0 = jnp.ones((n,))
-    be0 = jnp.zeros((n,))
-
-    t, trid, al, be = traverse.bvh_hit_sparse(
-        bvh, soup, org, d, active, max_leaf=fb.max_leaf,
-        t=t0, tri=tri0, alpha=al0, beta=be0, chunk=64)
-
-    full = traverse.bvh_hit(bvh, soup, org, d, max_leaf=fb.max_leaf)
-    act = np.asarray(active)
-    np.testing.assert_allclose(np.asarray(t)[act], np.asarray(full.t)[act],
-                               rtol=1e-5)
-    np.testing.assert_array_equal(np.asarray(trid)[act],
-                                  np.asarray(full.tri)[act])
-    # inactive lanes untouched
-    np.testing.assert_array_equal(np.asarray(t)[~act],
-                                  np.asarray(t0)[~act])
-    np.testing.assert_array_equal(np.asarray(trid)[~act],
-                                  np.asarray(tri0)[~act])
-
-
-def test_bvh_hit_sparse_no_active_is_identity():
-    tri = _random_mesh(64, seed=6)
-    fb = bvh_mod.build_bvh(tri)
-    soup = traverse.make_soup(tri[fb.order])
-    bvh = traverse.upload_bvh(fb)
-    org, d = _random_rays(50, seed=8)
-    t0 = jnp.linspace(1.0, 2.0, 50)
-    tri0 = jnp.arange(50, dtype=jnp.int32)
-    t, trid, _, _ = traverse.bvh_hit_sparse(
-        bvh, soup, org, d, jnp.zeros((50,), bool), max_leaf=fb.max_leaf,
-        t=t0, tri=tri0, alpha=jnp.ones((50,)), beta=jnp.zeros((50,)),
-        chunk=16)
-    np.testing.assert_array_equal(np.asarray(t), np.asarray(t0))
-    np.testing.assert_array_equal(np.asarray(trid), np.asarray(tri0))
-
-
-def test_bvh_hit_sparse_respects_prior_best():
-    """A closer prior best on an active lane must survive (strict <)."""
-    tri = _random_mesh(300, seed=11)
-    fb = bvh_mod.build_bvh(tri)
-    soup = traverse.make_soup(tri[fb.order])
-    bvh = traverse.upload_bvh(fb)
-    org, d = _random_rays(128, seed=12)
-    full = traverse.bvh_hit(bvh, soup, org, d, max_leaf=fb.max_leaf)
-    # prior best strictly closer than any real hit
-    t0 = jnp.where(full.t < 1e29, full.t * 0.5, jnp.full_like(full.t, 1e-3))
-    tri0 = jnp.full((128,), 777, jnp.int32)
-    t, trid, _, _ = traverse.bvh_hit_sparse(
-        bvh, soup, org, d, jnp.ones((128,), bool), max_leaf=fb.max_leaf,
-        t=t0, tri=tri0, alpha=jnp.ones((128,)), beta=jnp.zeros((128,)),
-        chunk=48)
-    np.testing.assert_array_equal(np.asarray(t), np.asarray(t0))
-    np.testing.assert_array_equal(np.asarray(trid), np.asarray(tri0))
+    org, d = _random_rays(64)
+    lim = jnp.full((64,), 5.0)
+    f = {'bvh_hit': lambda o, dd: traverse.bvh_hit(
+             bvh, soup, o, dd, max_leaf=fb.max_leaf, any_hit_limit=lim),
+         'brute_force_hit': lambda o, dd: traverse.brute_force_hit(
+             soup, o, dd),
+         'brute_force_any': lambda o, dd: traverse.brute_force_any(
+             soup, o, dd, lim)}[fn]
+    text = jax.jit(f).lower(org, d).as_text()
+    assert 'stablehlo.reduce' in text or 'while' in text
+    assert _bool_reductions(text) == []

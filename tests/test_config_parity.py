@@ -143,8 +143,8 @@ def _run_config(ladder_dir, name, W, H, SPP, BOUNCES):
                          envmap=envmap, fog=extras['fog'])
     cfg = rnd.RenderConfig(width=W, height=H, nrays=SPP, nb_bounces=BOUNCES)
     cp = rng_host.random_per_pixel_fast(W, H)
-    _, smp_tpu = rnd.render_unsplatted(sc, cam, jnp.asarray(cp), cfg)
-    smp_tpu = np.asarray(smp_tpu)
+    _, smp_jax = rnd.render_unsplatted(sc, cam, jnp.asarray(cp), cfg)
+    smp_jax = np.asarray(smp_jax)
 
     cpu_scene = ref.CPUScene(
         _cpu_objects(objects), li,
@@ -159,13 +159,13 @@ def _run_config(ladder_dir, name, W, H, SPP, BOUNCES):
     smp_cpu = ref.render_cpu(cpu_scene, cpu_cam, W, H, SPP, BOUNCES, cp)
 
     scale = max(np.abs(smp_cpu).max(), 1e-6)
-    rel = np.abs(smp_tpu - smp_cpu).max(-1) / scale          # (H,W,SPP)
+    rel = np.abs(smp_jax - smp_cpu).max(-1) / scale          # (H,W,SPP)
     flipped = rel > 1e-3
     assert flipped.mean() < 0.05, (
         f'{name}: {flipped.mean():.4f} of samples diverge beyond f32 noise')
     tight = rel[~flipped]
     assert tight.size == 0 or tight.max() < 1e-3
-    mean_rel = abs(smp_tpu.mean() - smp_cpu.mean()) / scale
+    mean_rel = abs(smp_jax.mean() - smp_cpu.mean()) / scale
     assert mean_rel < 0.02, f'{name}: aggregate mean differs {mean_rel:.4f}'
     # non-vacuous: the config's signature feature must contribute
     assert np.abs(smp_cpu).max() > 0.0

@@ -1,5 +1,5 @@
 """Fluid ANIMATION parity: per-frame particle snapshots drive per-frame
-cluster rebuilds, the TPU-shaped stand-in for the reference's
+cluster rebuilds, the wavefront stand-in for the reference's
 d.time-indexed per-frame acceleration grids (fluid.cpp:36-73,
 fluid.h:940-957).  VERDICT r03 missing #6.
 

@@ -1,6 +1,6 @@
 """Particle-cluster acceleration vs brute-force oracle (fluid tier).
 
-The clustered sweep is the TPU-native form of the reference's uniform
+The clustered sweep is the wavefront form of the reference's uniform
 accel grid + DDA walk (fluid.cpp:36-171); these tests pin bit-equal hits
 against the dense sweeps, including the overflow reroute path.
 """

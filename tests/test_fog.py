@@ -1,4 +1,4 @@
-"""Fog: TPU wavefront vs CPU harness parity + physical sanity checks."""
+"""Fog: JAX wavefront vs CPU harness parity + physical sanity checks."""
 
 import math
 
@@ -49,19 +49,19 @@ def _compare(fog, flip_budget=0.08):
     cam, cpu_cam = _cams()
     cfg = rnd.RenderConfig(width=W, height=H, nrays=SPP, nb_bounces=BOUNCES)
     cp = rng_host.random_per_pixel_fast(W, H)
-    _, smp_tpu = rnd.render_unsplatted(sc, cam, jnp.asarray(cp), cfg)
-    smp_tpu = np.asarray(smp_tpu)
+    _, smp_jax = rnd.render_unsplatted(sc, cam, jnp.asarray(cp), cfg)
+    smp_jax = np.asarray(smp_jax)
     smp_cpu = ref.render_cpu(cpu_scene, cpu_cam, W, H, SPP, BOUNCES, cp)
 
     scale = max(np.abs(smp_cpu).max(), 1e-6)
-    rel = np.abs(smp_tpu - smp_cpu).max(-1) / scale
+    rel = np.abs(smp_jax - smp_cpu).max(-1) / scale
     flipped = rel > 1e-3
     # fog adds more knife-edges (equiangular + visibility + RR); budget is
     # a bit wider than the surface-only tests
     assert flipped.mean() < flip_budget, f"{flipped.mean():.4f} flipped"
     tight = rel[~flipped]
     assert tight.max() < 1e-3
-    mean_rel = abs(smp_tpu.mean() - smp_cpu.mean()) / scale
+    mean_rel = abs(smp_jax.mean() - smp_cpu.mean()) / scale
     assert mean_rel < 0.05, f"aggregate {mean_rel:.4f}"
 
 

@@ -1,4 +1,4 @@
-"""End-to-end: wavefront TPU integrator vs sequential CPU reference tracer.
+"""End-to-end: wavefront JAX integrator vs sequential CPU reference tracer.
 
 BASELINE config 1 shape: analytic spheres + plane, Phong materials, one
 spherical light — the forward image must allclose the CPU render at equal
@@ -76,12 +76,12 @@ def _compare(extra):
     cfg = rnd.RenderConfig(width=W, height=H, nrays=SPP, nb_bounces=BOUNCES)
     cp = rng_host.random_per_pixel_fast(W, H)
 
-    _, smp_tpu = rnd.render_unsplatted(sc, cam, jnp.asarray(cp), cfg)
-    smp_tpu = np.asarray(smp_tpu)
+    _, smp_jax = rnd.render_unsplatted(sc, cam, jnp.asarray(cp), cfg)
+    smp_jax = np.asarray(smp_jax)
     smp_cpu = ref.render_cpu(cpu_scene, cpu_cam, W, H, SPP, BOUNCES, cp)
 
     scale = max(np.abs(smp_cpu).max(), 1e-6)
-    per_sample_rel = np.abs(smp_tpu - smp_cpu).max(-1) / scale  # (H,W,SPP)
+    per_sample_rel = np.abs(smp_jax - smp_cpu).max(-1) / scale  # (H,W,SPP)
     flipped = per_sample_rel > 1e-3
     frac_flipped = flipped.mean()
     assert frac_flipped < 0.05, (
@@ -90,7 +90,7 @@ def _compare(extra):
     tight = per_sample_rel[~flipped]
     assert tight.max() < 1e-3
     # aggregate agreement: flips are boundary samples, roughly unbiased
-    mean_rel = abs(smp_tpu.mean() - smp_cpu.mean()) / scale
+    mean_rel = abs(smp_jax.mean() - smp_cpu.mean()) / scale
     assert mean_rel < 0.02, f"{extra}: aggregate mean differs {mean_rel:.4f}"
 
 

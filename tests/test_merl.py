@@ -239,13 +239,13 @@ def test_titopo_e2e_matches_cpu(tmp_path):
                    fov=35 * math.pi / 180, focus=50.0, aperture=0.1)
     cfg = rnd.RenderConfig(width=W, height=H, nrays=SPP, nb_bounces=BOUNCES)
     cp = rng_host.random_per_pixel_fast(W, H)
-    _, smp_tpu = rnd.render_unsplatted(sc, cam, jnp.asarray(cp), cfg)
-    smp_tpu = np.asarray(smp_tpu)
+    _, smp_jax = rnd.render_unsplatted(sc, cam, jnp.asarray(cp), cfg)
+    smp_jax = np.asarray(smp_jax)
     smp_cpu = ref.render_cpu(cpu_scene, cpu_cam, W, H, SPP, BOUNCES, cp)
     scale = max(np.abs(smp_cpu).max(), 1e-6)
-    per_sample_rel = np.abs(smp_tpu - smp_cpu).max(-1) / scale
+    per_sample_rel = np.abs(smp_jax - smp_cpu).max(-1) / scale
     flipped = per_sample_rel > 1e-3
     assert flipped.mean() < 0.05, flipped.mean()
     assert per_sample_rel[~flipped].max() < 1e-3
-    mean_rel = abs(smp_tpu.mean() - smp_cpu.mean()) / scale
+    mean_rel = abs(smp_jax.mean() - smp_cpu.mean()) / scale
     assert mean_rel < 0.02, mean_rel

@@ -87,8 +87,8 @@ def test_mesh_render_matches_cpu(cube_path):
     cam = pt.make_camera((0, 0, 50), (0, 0, -1), (0, 1, 0))
     cfg = rnd.RenderConfig(width=W, height=H, nrays=SPP, nb_bounces=BOUNCES)
     cp = rng_host.random_per_pixel_fast(W, H)
-    _, smp_tpu = rnd.render_unsplatted(sc, cam, jnp.asarray(cp), cfg)
-    smp_tpu = np.asarray(smp_tpu)
+    _, smp_jax = rnd.render_unsplatted(sc, cam, jnp.asarray(cp), cfg)
+    smp_jax = np.asarray(smp_jax)
 
     # CPU twin: same mesh (post-transform, BVH order irrelevant for brute),
     # with the reference default grey Kd=0.5... overridden by MTL per group.
@@ -116,8 +116,8 @@ def test_mesh_render_matches_cpu(cube_path):
     smp_cpu = ref.render_cpu(cpu_scene, cpu_cam, W, H, SPP, BOUNCES, cp)
 
     scale = max(np.abs(smp_cpu).max(), 1e-6)
-    rel = np.abs(smp_tpu - smp_cpu).max(-1) / scale
+    rel = np.abs(smp_jax - smp_cpu).max(-1) / scale
     flipped = rel > 1e-3
     assert flipped.mean() < 0.05, f"{flipped.mean():.4f} samples diverge"
-    mean_rel = abs(smp_tpu.mean() - smp_cpu.mean()) / scale
+    mean_rel = abs(smp_jax.mean() - smp_cpu.mean()) / scale
     assert mean_rel < 0.02

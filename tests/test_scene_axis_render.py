@@ -1,106 +1,13 @@
-"""INTEGRATED scene-axis render (config 5, VERDICT r03 #2).
+"""Scene-axis communication model (parallel/scene_shard.py).
 
-The cluster-tier mesh sharded over the 'scene' device axis must render
-the SAME image as the single-device path, through the full renderer
-(make_sharded_render on a dp x scene mesh): per-shard cluster culls +
-sweeps, all_gather+argmin winner combine, psum'd shading-row fetch,
-OR-combined shadow occlusion.  Reference counterpart: one top-level
-Scene::intersection over all geometry (Geometry.cpp:589-688) at scales
-one chip cannot hold (antiqueOffice 23.7M tris, README.md:70).
-"""
+A scene axis replicates rays and partitions the geometry over devices;
+per bounce it all-gathers (t, tri) winners, psums the shadow occlusion
+and psums the winner's shading row.  scene_axis_comm_model counts those
+bytes per device per wave."""
 
-import numpy as np
-import jax
-import jax.numpy as jnp
+import pytest
 
-import pathtracer_tpu as pt
-from pathtracer_tpu.core import rng_host
-from pathtracer_tpu.io import obj as obj_io
-from pathtracer_tpu.parallel import scene_shard, sharding
-from pathtracer_tpu.render import film as film_mod
-from pathtracer_tpu.scene import mesh as mesh_mod
-from pathtracer_tpu.scene import scene as scn
-from pathtracer_tpu.utils import procgen
-
-
-def _cluster_scene():
-    md = procgen.sphere_mesh(32, 32, radius=10.0, displace_amp=0.3)
-    objs = scn.default_objects()
-    objs.append(scn.mesh_object(md, translation=(0.0, -14.0, 0.0),
-                                kd=(0.6, 0.4, 0.3)))
-    sc = pt.build_scene(objs, pt.default_light_intensity())
-    m0 = sc.meshes[0]
-    m1 = mesh_mod.upload_mesh(md, obj_row=m0.obj_row, use_cluster=True)
-    assert m1.use_cluster and m1.n_clusters >= 4, m1.n_clusters
-    return sc.replace(meshes=(m1,)), md
-
-
-def _render(sc, mesh, w, h):
-    cam = pt.make_camera((0, 0, 50), (0, 0, -1), (0, 1, 0))
-    cfg = pt.RenderConfig(width=w, height=h, nrays=2, nb_bounces=2)
-    film = film_mod.make_film(w, h, cfg.sigma_filter)
-    render = sharding.make_sharded_render(mesh, cfg, film.ratio)
-    cp = jnp.asarray(rng_host.random_per_pixel_fast(w, h))
-    img, cnt = render(sc, cam, cp)
-    return np.asarray(img), np.asarray(cnt)
-
-
-def test_scene_axis_image_matches_single_device():
-    sc, md = _cluster_scene()
-    w, h = 16, 8
-
-    # baseline: the same render on ONE device (identical sampling keys)
-    img1, cnt1 = _render(sc, sharding.make_mesh(n_devices=1, dp=1), w, h)
-    assert np.isfinite(img1).all() and img1.sum() > 0
-
-    # sharded: dp=2 x scene=4 over the 8 virtual CPU devices
-    m_sh = scene_shard.shard_clustered_mesh(sc.meshes[0], 4)
-    assert m_sh.scene_axis == 'scene'
-    sc_sh = sc.replace(meshes=(m_sh,))
-    img2, cnt2 = _render(sc_sh, sharding.make_mesh(dp=2, sp=1, scene=4),
-                         w, h)
-
-    # psum reduction order differs across mesh shapes -> f32 noise only
-    np.testing.assert_allclose(cnt2, cnt1, rtol=1e-6, atol=1e-6)
-    np.testing.assert_allclose(img2, img1, rtol=1e-5, atol=1e-5)
-
-
-def test_scene_axis_shard_structure():
-    sc, md = _cluster_scene()
-    m = sc.meshes[0]
-    m_sh = scene_shard.shard_clustered_mesh(m, 4)
-    # every cluster array gained a leading (D,) axis
-    for a in m_sh.clustered:
-        assert a.shape[0] == 4
-    # shard rows tile the triangle range exactly
-    row0 = np.asarray(m_sh.shard_row0)
-    rows = np.asarray(m_sh.shard_rows)
-    assert row0[0] == 0
-    assert (row0[1:] == row0[:-1] + rows[:-1]).all()
-    assert row0[-1] + rows[-1] == m.shade_pack.shape[0]
-    # hits must be reachable from every shard's rows (owned slices of the
-    # original pack)
-    sp = np.asarray(m.shade_pack)
-    for d in range(4):
-        seg = np.asarray(m_sh.shade_pack[d][:rows[d]])
-        np.testing.assert_array_equal(seg, sp[row0[d]:row0[d] + rows[d]])
-
-
-def test_scene_axis_shard_balance():
-    """The ≥8x scaling target assumes shard BALANCE: cluster counts and
-    shade rows per shard within a small factor (the comm/compute model in
-    scene_shard.scene_axis_scaling_model divides compute by D)."""
-    sc, md = _cluster_scene()
-    m = sc.meshes[0]
-    m_sh = scene_shard.shard_clustered_mesh(m, 4)
-    rows = np.asarray(m_sh.shard_rows).astype(np.float64)
-    assert rows.max() <= 2.0 * max(rows.min(), 1.0), rows
-    # real (non-pad) clusters per shard: pad clusters have degenerate
-    # (lo > hi) boxes
-    lox = np.asarray(m_sh.clustered[10])
-    hix = np.asarray(m_sh.clustered[13])
-    nreal = (lox <= hix).sum(axis=1).astype(np.float64)
-    assert nreal.max() <= 2.0 * max(nreal.min(), 1.0), nreal
+from pathtracer_tpu.parallel import scene_shard
 
 
 def test_comm_model_shapes():
@@ -108,27 +15,16 @@ def test_comm_model_shapes():
     assert cm['total_bytes_per_device_per_wave'] == (
         cm['allgather_closest_bytes'] + cm['psum_shadow_bytes']
         + cm['psum_shade_bytes'])
-    # monotone in D and zero at D=1
+    # zero at D=1
     c1 = scene_shard.scene_axis_comm_model(1920 * 1080, 1, 3, 16)
     assert c1['total_bytes_per_device_per_wave'] == 0
-    sm = scene_shard.scene_axis_scaling_model(2.9e6, 16, 3, 16)
-    assert 1.0 < sm['modeled_speedup_vs_1chip'] <= 16.0
-    assert 0.0 < sm['comm_fraction'] < 1.0
 
 
-def test_shard_tiny_mesh_empty_trailing_shards():
-    """A mesh with fewer clusters than shards: triangle-balanced bounds
-    may leave trailing shards EMPTY (bounds hit C mid-array) — the row
-    table must still tile the range exactly (the dryrun's 24x24 sphere
-    hit an IndexError here)."""
-    from pathtracer_tpu.utils import procgen
-    from pathtracer_tpu.scene import mesh as mesh_mod
-    md = procgen.sphere_mesh(24, 24, radius=10.0, displace_amp=0.3)
-    m = mesh_mod.upload_mesh(md, obj_row=3, use_cluster=True)
-    m_sh = scene_shard.shard_clustered_mesh(m, 4)
-    row0 = np.asarray(m_sh.shard_row0)
-    rows = np.asarray(m_sh.shard_rows)
-    assert row0[0] == 0
-    assert (rows >= 0).all()
-    assert (row0[1:] == row0[:-1] + rows[:-1]).all()
-    assert row0[-1] + rows[-1] == m.shade_pack.shape[0]
+@pytest.mark.parametrize('d', [2, 4, 8])
+def test_comm_model_grows_with_devices(d):
+    small = scene_shard.scene_axis_comm_model(1 << 20, d, 3, 16)
+    big = scene_shard.scene_axis_comm_model(1 << 20, 2 * d, 3, 16)
+    assert (big['total_bytes_per_device_per_wave']
+            > small['total_bytes_per_device_per_wave'])
+    # the closest-hit all-gather receives (D-1) * N * 8 bytes per bounce
+    assert small['allgather_closest_bytes'] == (d - 1) * (1 << 20) * 8 * 3

@@ -121,3 +121,22 @@ def test_renderer_denoised_path():
     out = np.asarray(r.denoised_display())
     assert out.shape == (16, 24, 3)
     assert np.all(np.isfinite(out)) and out.max() > 0
+
+
+@pytest.mark.parametrize('shape,axis', [((7,), None), ((5, 9), 1),
+                                        ((5, 9), 0), ((4, 0), 1),
+                                        ((3, 4, 6), -1)])
+def test_any_true_matches_any(shape, axis):
+    """vec.any_true is jnp.any without a boolean reduction (an empty axis
+    gives False, like jnp.any)."""
+    import jax
+    from pathtracer_tpu.core import vec
+    rng = np.random.default_rng(len(shape))
+    for p in (0.0, 0.05, 1.0):
+        x = rng.uniform(size=shape) < p
+        got = vec.any_true(jnp.asarray(x), axis=axis)
+        np.testing.assert_array_equal(np.asarray(got), np.any(x, axis=axis))
+    text = jax.jit(lambda a: vec.any_true(a, axis=axis)).lower(
+        jnp.asarray(x)).as_text()
+    from test_bvh import _bool_reductions
+    assert _bool_reductions(text) == []
